@@ -8,7 +8,7 @@ plays the same methodological role natively: a brute-force chi^2 scan of
 the *same* forward model over a parameter grid, giving an MCMC-independent
 check that the posterior mode sits at the grid minimum.
 
-On TPU the whole grid is one vmapped batch — a million grid points is a
+On the accelerator the whole grid is one vmapped batch — a million grid points is a
 single device call.
 """
 

@@ -19,7 +19,7 @@ with no adaptation bias. Agreement between the two engines' posteriors
 is an engine-independent check of the whole lnprob stack, exactly the
 role the CASSIS scripts play for the reference.
 
-TPU-native shape: the W chains are a batch axis of one jitted
+Device shape: the W chains are a batch axis of one jitted
 `lax.scan` (proposals and acceptance uniforms pre-generated in bulk, as
 in sampler/stretch.py), so the full sampling phase is a single device
 program; the warmup is a short host loop over frozen-sigma scan rounds.

@@ -18,8 +18,8 @@ dispatch rules verbatim — including quirks that matter for parity:
 Unlike the reference — which re-evaluates this per likelihood call on the
 host — the model here is resolved once at catalog load into a frozen,
 *jittable* form: either analytic coefficients (poly + power law) or
-precomputed unique-state (g, E) arrays, so Q(Tex) is a handful of fused VPU
-ops inside the jitted likelihood.
+precomputed unique-state (g, E) arrays, so Q(Tex) is a handful of fused
+element-wise ops inside the jitted likelihood.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ if TYPE_CHECKING:
     from cha1_mcmc_tpu.catalogs.spcat import Catalog
 
 __all__ = ["QModel", "q_model_for_catalog", "calc_qvib",
-           "fit_device_cheb", "device_n_states"]
+           "fit_device_cheb"]
 
 
 def calc_qvib(vibs, T, xp=np):
@@ -74,15 +74,12 @@ class QModel:
     #: Optional DEVICE surrogate (fit_device_cheb): Chebyshev-T
     #: coefficients of Q(T) over cheb_interval = (t_lo, t_hi). When
     #: present, `__call__` (the jitted device path) evaluates the
-    #: Clenshaw recurrence instead of the state sum — measured on the
-    #: v5e the 16,488-state aromatic walk was ~95% of the dense fused
-    #: kernel's lnprob cost (tools/tpu_time_gather_ablate.py
-    #: 2026-08-19: kern_base 0.035 ms/eval vs kern_qones 0.001), while
-    #: a degree-16 fit reproduces Q to ~4e-12 relative in f64 — far
-    #: below f32 resolution, so device results agree to the ulp level
-    #: the kernels already document. `host_eval` (the f64 oracle the
-    #: parity tests audit) always evaluates the exact reference
-    #: formulas and ignores the surrogate.
+    #: Clenshaw recurrence instead of the state sum — the 16,488-state
+    #: aromatic sum is a (walkers x states) exp per evaluation, while
+    #: a degree-16 fit reproduces Q to ~4e-12 relative in f64, far
+    #: below f32 resolution. `host_eval` (the f64 oracle the parity
+    #: tests audit) always evaluates the exact reference formulas and
+    #: ignores the surrogate.
     cheb_interval: tuple | None = None
     cheb_coeffs: tuple | None = None
 
@@ -243,16 +240,6 @@ def _state_sum_model(catalog: "Catalog") -> QModel:
     J = unique_rows[:, 0]
     E = unique_rows[:, -1]
     return QModel(kind="states", g=(2.0 * J + 1.0), E=E)
-
-
-def device_n_states(qm: QModel) -> int:
-    """Number of states the DEVICE evaluation of this QModel walks: 0 for
-    analytic forms and for state-sum models carrying a Chebyshev device
-    surrogate (fit_device_cheb) — the fused kernels and VMEM planners
-    size their state-sum machinery from this, not from `kind` alone."""
-    if qm.kind == "analytic" or qm.cheb_coeffs is not None:
-        return 0
-    return int(np.size(qm.g))
 
 
 def fit_device_cheb(qm: QModel, t_lo: float, t_hi: float, *,

@@ -13,8 +13,11 @@ Two layers:
   Numba kernel (reference inference.py:44-61). Here everything static —
   covered-line arrays, the (lines x channels) velocity grid, the background
   Planck term — is precomputed once; a likelihood evaluation is a handful of
-  fused element-wise ops plus one contraction over the line axis, which XLA
-  maps onto the MXU when batched over walkers.
+  fused element-wise ops plus one contraction over the line axis (a batched
+  matrix product when vmapped over walkers).
+
+* :func:`forward_host` — the float64 NumPy oracle of the device model, for
+  checking f32 device results.
 """
 
 from __future__ import annotations
@@ -171,6 +174,58 @@ def simulate_gauss_host(
     return freq_sim, np.sum(int_comps, axis=0), np.sum(tau_comps, axis=0)
 
 
+def catalog_lines(catalog: Catalog, covered_idx, ll: float, ul: float):
+    """(freq, elower, aij, gup, glow) float64 host arrays of the covered
+    lines: `covered_idx` indexes the catalog trimmed to (ll, ul], as the
+    reference's covered_trans does (reference inference.py:142-144)."""
+    i, i2 = catalog.trim_indices(ll, ul)
+    sel = np.arange(i, i2)[np.asarray(covered_idx, dtype=int)]
+    return (catalog.frequency[sel], catalog.elower[sel], catalog.aij[sel],
+            catalog.gup[sel], catalog.glow[sel])
+
+
+def forward_host(lines, q_model: QModel, grid_freq, *, vel_offset: float,
+                 mask_center: float, dish_size: float, Tbg: float,
+                 source_size, Ncol, Tex: float, vlsr, dV: float,
+                 chunk: int = 1024) -> np.ndarray:
+    """Float64 NumPy oracle of :func:`forward_from_lines` for one theta.
+
+    Same physics (reference inference.py:44-61,
+    TMC1_four_component.py:148-181), written independently of the device
+    code: the velocity grid is rebuilt from frequencies in float64, the
+    line sum runs in chunks of `chunk` lines so a dense catalog's (L, C)
+    grid never materializes, and Q is the exact host formula. `lines` is
+    (freq, elower, aij, gup, glow); source_size, Ncol, vlsr are scalars
+    or per-component sequences. Returns the (C,) model in K.
+    """
+    freq, elower, aij, gup, glow = (np.asarray(a, dtype=np.float64)
+                                    for a in lines)
+    grid = np.asarray(grid_freq, dtype=np.float64)
+    Ncol = np.atleast_1d(np.asarray(Ncol, dtype=np.float64))
+    vlsr = np.broadcast_to(np.asarray(vlsr, dtype=np.float64), Ncol.shape)
+    ss = np.broadcast_to(np.asarray(source_size, dtype=np.float64), Ncol.shape)
+    Q = float(q_model.host_eval(float(Tex)))
+    sigma = dV / FWHM_TO_SIGMA_MODEL
+    J = (planck_J(np, grid, Tex, guard=1e-10)
+         - planck_J(np, grid, Tbg, guard=1e-10))
+    out = np.zeros(grid.shape)
+    with np.errstate(under="ignore", over="ignore"):
+        for k in range(Ncol.size):
+            taus = tau_sticks(np, freq, elower, aij, gup, glow, Q, Ncol[k],
+                              Tex, dV)
+            opac = np.zeros(grid.shape)
+            for s in range(0, freq.size, chunk):
+                lf = freq[s:s + chunk, None]
+                vel = (lf - grid[None, :]) / lf * CKM + vel_offset
+                window = np.abs(vel - mask_center) < VELOCITY_WINDOW_DV * dV
+                z = (vel - vlsr[k]) / sigma
+                opac += taus[s:s + chunk] @ np.where(window,
+                                                     np.exp(-0.5 * z * z), 0.0)
+            out += (beam_dilution(np, grid, ss[k], dish_size) * J
+                    * (1.0 - np.exp(-opac)))
+    return out
+
+
 def forward_from_lines(
     line_freq, line_elower, line_aij, line_gup, line_glow, vel_grid,
     q_model: QModel, grid_freq, mask_center, dish_size, Tbg, dtype,
@@ -200,8 +255,10 @@ def forward_from_lines(
     window = jnp.abs(vel_grid - mask_center) < VELOCITY_WINDOW_DV * dV
     z = (vel_grid - vlsr[..., None, None]) / sigma
     gauss = jnp.where(window, jnp.exp(-0.5 * z * z), 0.0)      # (ncomp, L, C)
-    # Contraction over lines: batched mat-vec (MXU under walker batching).
-    opac = jnp.einsum("...l,...lc->...c", taus, gauss)         # (ncomp, C)
+    # Contraction over lines (a batched mat-vec under walker batching).
+    # HIGHEST keeps the f32 dot out of TF32 on tensor-core GPUs.
+    opac = jnp.einsum("...l,...lc->...c", taus, gauss,
+                      precision=jax.lax.Precision.HIGHEST)     # (ncomp, C)
     if axis_name is not None:
         opac = jax.lax.psum(opac, axis_name)
 
@@ -209,7 +266,9 @@ def forward_from_lines(
     J_T = planck_J(jnp, grid_freq, Tex, guard=1e-10)
     J_Tbg = planck_J(jnp, grid_freq, jnp.asarray(Tbg, dtype=dtype), guard=1e-10)
     dil = beam_dilution(jnp, grid_freq, source_size[:, None], dish_size)
-    comps = dil * (J_T - J_Tbg) * (1.0 - jnp.exp(-opac))       # (ncomp, C)
+    # -expm1(-tau) == 1 - exp(-tau) without the f32 cancellation at small
+    # opacity (optically thin lines).
+    comps = dil * (J_T - J_Tbg) * -jnp.expm1(-opac)            # (ncomp, C)
     return jnp.sum(comps, axis=0)
 
 
@@ -267,21 +326,31 @@ class SpectralModel:
         as the reference's covered_trans indexes the trimmed simulation
         (reference inference.py:142-144 after classes.py:358-364).
         """
-        i, i2 = catalog.trim_indices(ll, ul)
-        sel = np.arange(i, i2)[np.asarray(covered_idx, dtype=int)]
         if q_model is None:
             q_model = q_model_for_catalog(catalog)
-        line_freq = catalog.frequency[sel]
+        return SpectralModel.from_lines(
+            catalog_lines(catalog, covered_idx, ll, ul), q_model, grid_freq,
+            dish_size=dish_size, vel_offset=vel_offset,
+            mask_center=mask_center, Tbg=Tbg, dtype=dtype)
+
+    @staticmethod
+    def from_lines(lines, q_model: QModel, grid_freq, *, dish_size: float,
+                   vel_offset: float, mask_center: float, Tbg: float = T_CMB,
+                   dtype=jnp.float32) -> "SpectralModel":
+        """Assemble a model from host (freq, elower, aij, gup, glow) line
+        arrays (catalog_lines, or a generated line list) and a channel
+        grid."""
+        line_freq, elower, aij, gup, glow = (np.asarray(a) for a in lines)
         grid_freq = np.asarray(grid_freq, dtype=np.float64)
         # Static (L, C) velocity grid (reference inference.py:51 computes this
         # per likelihood call; it depends only on static frequencies).
         vel_grid = (line_freq[:, None] - grid_freq[None, :]) / line_freq[:, None] * CKM + vel_offset
         return SpectralModel(
             line_freq=jnp.asarray(line_freq, dtype=dtype),
-            line_elower=jnp.asarray(catalog.elower[sel], dtype=dtype),
-            line_aij=jnp.asarray(catalog.aij[sel], dtype=dtype),
-            line_gup=jnp.asarray(catalog.gup[sel], dtype=dtype),
-            line_glow=jnp.asarray(catalog.glow[sel], dtype=dtype),
+            line_elower=jnp.asarray(elower, dtype=dtype),
+            line_aij=jnp.asarray(aij, dtype=dtype),
+            line_gup=jnp.asarray(gup, dtype=dtype),
+            line_glow=jnp.asarray(glow, dtype=dtype),
             q_model=q_model,
             grid_freq=jnp.asarray(grid_freq, dtype=dtype),
             vel_grid=jnp.asarray(vel_grid, dtype=dtype),

@@ -34,7 +34,7 @@ def initialize_multihost(coordinator_address: str | None = None,
             num_processes=num_processes, process_id=process_id)
     else:
         try:
-            # Auto-detect cluster environment (TPU pods, SLURM, ...). On a
+            # Auto-detect cluster environment (SLURM, Open MPI, ...). On a
             # plain single host with no cluster variables this raises; that
             # is the legitimate single-process case.
             jax.distributed.initialize()

@@ -1,6 +1,6 @@
-"""shard_map ensemble sampling over a ('walkers', 'lines') mesh.
+"""shard_map ensemble sampling over a ('chains', 'walkers', 'lines') mesh.
 
-Collective pattern per ensemble step (all over ICI):
+Collective pattern per ensemble step:
   all_gather(complement half)   — 2x per step, (W/2, D) each (D <= 14)
   psum(partial opacity)         — inside each lnprob eval, only if the
                                   lines axis has > 1 shard
@@ -32,20 +32,17 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from cha1_mcmc_tpu.models.forward import SpectralModel, forward_from_lines
 from cha1_mcmc_tpu.inference.params import ParamSpec
 from cha1_mcmc_tpu.sampler.stretch import EnsembleSampler
 
 __all__ = ["make_mesh", "pad_model_lines", "run_ensemble_sharded",
-           "make_sharded_runner", "make_sharded_sampler",
-           "ShardedEnsembleSampler"]
+           "make_sharded_lnprob", "make_sharded_runner",
+           "make_sharded_sampler", "ShardedEnsembleSampler"]
 
 CHAIN_AXIS = "chains"
 WALKER_AXIS = "walkers"
@@ -57,7 +54,7 @@ def make_mesh(n_walker_shards: int | None = None, n_line_shards: int = 1,
     """Build a ('chains', 'walkers', 'lines') mesh over the available
     devices. The chains axis carries K *independent* ensembles (no
     collectives cross it — all_gather/psum ride the walkers/lines axes
-    only), composing pod-scale walker sharding with honest cross-chain
+    only), composing walker sharding with honest cross-chain
     R-hat; size 1 recovers the plain ('walkers', 'lines') layout."""
     devices = list(devices if devices is not None else jax.devices())
     if n_walker_shards is None:
@@ -117,6 +114,108 @@ def _half_step_sharded(lnprob_batch, ndim, a, coords, lnp, active_idx, comp_idx,
     return coords, lnp, jnp.sum(accept)
 
 
+def _local_lnprob(model: SpectralModel, spec: ParamSpec, grid_ints,
+                  grid_yerrs, lnprior_fn, mesh: Mesh, use_pallas: bool,
+                  dv_max: float | None):
+    """Per-device walker-batched lnprob over a line shard.
+
+    Returns (line_args, line_specs, local_lnprob_batch): the global line
+    arrays to pass into shard_map, their 'lines'-axis partition specs, and
+    `local_lnprob_batch(lines_local, thetas (N, D)) -> (N,)`, which must run
+    inside shard_map over `mesh`. use_pallas=True evaluates each shard
+    through the sparse channel-major gather (models/opacity.py: per-shard
+    tables padded to a common size and sharded on the 'lines' axis);
+    otherwise each shard runs the dense einsum. Either way the (N, C)
+    partial opacity is psum'ed over the lines axis once per evaluation.
+    """
+    n_l = mesh.shape[LINE_AXIS]
+    model = pad_model_lines(model, n_l)
+    dtype = model.dtype
+
+    y = jnp.asarray(grid_ints, dtype=dtype)
+    inv_sigma2 = 1.0 / jnp.asarray(grid_yerrs, dtype=dtype) ** 2
+    axis_name = LINE_AXIS if n_l > 1 else None
+
+    def chi2_lnprob(m, lp):
+        resid = y - m
+        ll = -0.5 * jnp.sum(resid * resid * inv_sigma2 - jnp.log(inv_sigma2),
+                            axis=-1)
+        return jnp.where(jnp.isfinite(lp) & jnp.isfinite(ll), lp + ll, -jnp.inf)
+
+    if use_pallas:
+        from cha1_mcmc_tpu.inference.likelihood import _batched_opacity_model
+        from cha1_mcmc_tpu.models.opacity import (build_opacity_gather_sharded,
+                                                  opacity_gather)
+
+        if dv_max is None:
+            raise ValueError("use_pallas=True requires dv_max (from prior bounds)")
+        table, vel_t, active = build_opacity_gather_sharded(
+            np.asarray(model.vel_grid), model.mask_center, dv_max, n_l)
+        # Each shard's active lines, padded with zero-opacity lines (aij = 0)
+        # up to the common count; taus are computed only for these.
+        pad = active < 0
+        take = np.where(pad, 0, active)
+
+        def shard_lines(arr, fill):
+            return jnp.asarray(np.where(pad, fill, np.asarray(arr)[take]), dtype)
+
+        line_args = (shard_lines(model.line_freq, 1.0),
+                     shard_lines(model.line_elower, 0.0),
+                     shard_lines(model.line_aij, 0.0),
+                     shard_lines(model.line_gup, 1.0),
+                     shard_lines(model.line_glow, 1.0),
+                     jnp.asarray(table), jnp.asarray(vel_t, dtype))
+
+        def local_lnprob_batch(lines_local, thetas):
+            *lines, tab, vel = lines_local
+            thetas = jnp.asarray(thetas, dtype=dtype)
+            m = _batched_opacity_model(
+                lambda t, v, d: opacity_gather(t, v, d, tab, vel,
+                                               mask_center=model.mask_center),
+                *lines, model.q_model, model.grid_freq, model.dish_size,
+                model.Tbg, dtype, spec, thetas, axis_name=axis_name)
+            return chi2_lnprob(m, jax.vmap(lnprior_fn)(thetas))
+    else:
+        line_args = (model.line_freq, model.line_elower, model.line_aij,
+                     model.line_gup, model.line_glow, model.vel_grid)
+
+        def local_lnprob(lines_local, theta):
+            lf, le, la, lg, lgl, vg = lines_local
+            ss, Ncol, Tex, vlsr, dV = spec.unpack(jnp.asarray(theta, dtype=dtype))
+            m = forward_from_lines(
+                lf, le, la, lg, lgl, vg, model.q_model, model.grid_freq,
+                model.mask_center, model.dish_size, model.Tbg, dtype,
+                ss, Ncol, Tex, vlsr, dV, axis_name=axis_name)
+            return chi2_lnprob(m, lnprior_fn(theta))
+
+        local_lnprob_batch = jax.vmap(local_lnprob, in_axes=(None, 0))
+
+    line_specs = tuple(P(LINE_AXIS) if a.ndim == 1 else P(LINE_AXIS, None)
+                       for a in line_args)
+    # Placed on the mesh once, so a call does not reshard them again.
+    line_args = tuple(jax.device_put(a, NamedSharding(mesh, s))
+                      for a, s in zip(line_args, line_specs))
+    return line_args, line_specs, local_lnprob_batch
+
+
+def make_sharded_lnprob(model: SpectralModel, spec: ParamSpec, grid_ints,
+                        grid_yerrs, lnprior_fn, mesh: Mesh,
+                        use_pallas: bool = False, dv_max: float | None = None):
+    """Jitted `lnprob(thetas (W, D)) -> (W,)` evaluated over `mesh`: walkers
+    split over ('chains', 'walkers'), catalog lines over 'lines' — the same
+    per-device lnprob the sharded sampler runs, for checking it against
+    the single-device builders."""
+    line_args, line_specs, local_lnprob_batch = _local_lnprob(
+        model, spec, grid_ints, grid_yerrs, lnprior_fn, mesh, use_pallas,
+        dv_max)
+    w_spec = P((CHAIN_AXIS, WALKER_AXIS))
+    fn = jax.jit(shard_map(
+        local_lnprob_batch, mesh=mesh,
+        in_specs=(line_specs, P((CHAIN_AXIS, WALKER_AXIS), None)),
+        out_specs=w_spec, check_vma=False))
+    return lambda thetas: fn(line_args, jnp.asarray(thetas, model.dtype))
+
+
 def make_sharded_runner(
     model: SpectralModel,
     spec: ParamSpec,
@@ -128,60 +227,21 @@ def make_sharded_runner(
     a: float = 2.0,
     use_pallas: bool = False,
     dv_max: float | None = None,
-    interpret: bool = False,
 ):
     """Build a jitted `runner(pos0, key) -> (chain, lnps, accepted,
     (pos, lnp))` executing `nsteps` sharded stretch-move steps.
+
+    use_pallas selects the per-shard opacity formulation (_local_lnprob).
 
     The returned callable is reusable across blocks (the jit cache is keyed
     on it), which is what makes checkpointed block execution compile once
     per block size instead of once per block.
     """
     n_w = mesh.shape[WALKER_AXIS]
-    n_l = mesh.shape[LINE_AXIS]
-    model = pad_model_lines(model, n_l)
     dtype = model.dtype
-
-    y = jnp.asarray(grid_ints, dtype=dtype)
-    inv_sigma2 = 1.0 / jnp.asarray(grid_yerrs, dtype=dtype) ** 2
-    line_args = (model.line_freq, model.line_elower, model.line_aij,
-                 model.line_gup, model.line_glow, model.vel_grid)
-    axis_name = LINE_AXIS if n_l > 1 else None
-
-    if use_pallas and dv_max is None:
-        raise ValueError("use_pallas=True requires dv_max (from prior bounds)")
-
-    def local_lnprob(lines_local, theta):
-        lf, le, la, lg, lgl, vg = lines_local
-        ss, Ncol, Tex, vlsr, dV = spec.unpack(jnp.asarray(theta, dtype=dtype))
-        m = forward_from_lines(
-            lf, le, la, lg, lgl, vg, model.q_model, model.grid_freq,
-            model.mask_center, model.dish_size, model.Tbg, dtype,
-            ss, Ncol, Tex, vlsr, dV, axis_name=axis_name)
-        resid = y - m
-        ll = -0.5 * jnp.sum(resid * resid * inv_sigma2 - jnp.log(inv_sigma2))
-        lp = lnprior_fn(theta)
-        return jnp.where(jnp.isfinite(lp) & jnp.isfinite(ll), lp + ll, -jnp.inf)
-
-    def local_lnprob_batch_pallas(lines_local, block_mask, thetas):
-        """Walker-batched local lnprob with the Pallas opacity kernel over
-        the device's line shard; partial opacity psum'ed over the lines
-        axis (dp x tp x Pallas). The forward body is shared with the
-        single-device batched path (inference.likelihood)."""
-        from cha1_mcmc_tpu.inference.likelihood import batched_model_pallas
-
-        lf, le, la, lg, lgl, vg = lines_local
-        m = batched_model_pallas(
-            lf, le, la, lg, lgl, vg, model.q_model, model.grid_freq,
-            model.mask_center, model.dish_size, model.Tbg, dtype, spec,
-            thetas, block_mask, interpret=interpret, axis_name=axis_name)
-        resid = y - m
-        ll = -0.5 * jnp.sum(resid * resid * inv_sigma2 - jnp.log(inv_sigma2), axis=-1)
-        lp = jax.vmap(lnprior_fn)(jnp.asarray(thetas, dtype=dtype))
-        return jnp.where(jnp.isfinite(lp) & jnp.isfinite(ll), lp + ll, -jnp.inf)
-
-    line_specs = (P(LINE_AXIS), P(LINE_AXIS), P(LINE_AXIS), P(LINE_AXIS),
-                  P(LINE_AXIS), P(LINE_AXIS, None))
+    line_args, line_specs, local_lnprob_batch = _local_lnprob(
+        model, spec, grid_ints, grid_yerrs, lnprior_fn, mesh, use_pallas,
+        dv_max)
     # The global walker dim partitions over (chains, walkers): whole
     # chains contiguous, matching MultiChainSampler's pooled (K*W, S, D)
     # layout so gelman_rubin measures cross-chain mixing unchanged.
@@ -200,16 +260,7 @@ def make_sharded_runner(
         # devices across the lines axis stay in lockstep.
         w_idx = (jax.lax.axis_index(CHAIN_AXIS) * mesh.shape[WALKER_AXIS]
                  + jax.lax.axis_index(WALKER_AXIS))
-        if use_pallas:
-            from cha1_mcmc_tpu.models.pallas_kernels import block_activity_mask_traced
-
-            # Static per run: hoisted out of the per-step lnprob so the
-            # scan body does not recompute the O(L x C) reduction.
-            block_mask = block_activity_mask_traced(
-                lines_local[5], model.mask_center, dv_max)
-            lnprob_batch = partial(local_lnprob_batch_pallas, lines_local, block_mask)
-        else:
-            lnprob_batch = jax.vmap(partial(local_lnprob, lines_local))
+        lnprob_batch = partial(local_lnprob_batch, lines_local)
         lnp_local = lnprob_batch(pos_local)
         W_local, D = pos_local.shape
         h = W_local // 2
@@ -273,7 +324,6 @@ def run_ensemble_sharded(
     a: float = 2.0,
     use_pallas: bool = False,
     dv_max: float | None = None,
-    interpret: bool = False,
 ):
     """Run `nsteps` stretch-move steps with walkers and catalog lines sharded.
 
@@ -285,17 +335,17 @@ def run_ensemble_sharded(
     """
     runner = make_sharded_runner(
         model, spec, grid_ints, grid_yerrs, lnprior_fn, mesh, nsteps, a=a,
-        use_pallas=use_pallas, dv_max=dv_max, interpret=interpret)
+        use_pallas=use_pallas, dv_max=dv_max)
     return runner(pos0, key)
 
 
 @dataclasses.dataclass
 class ShardedEnsembleSampler(EnsembleSampler):
-    """Multi-chip EnsembleSampler: same chain-file / checkpoint / resume
+    """Multi-device EnsembleSampler: same chain-file / checkpoint / resume
     contract as the single-device sampler, executed over a
-    ('walkers', 'lines') mesh.
+    ('chains', 'walkers', 'lines') mesh.
 
-    This is what `FitConfig.n_devices` routes to — the TPU replacement for
+    This is what `FitConfig.n_devices` routes to — the replacement for
     the reference's multiprocessing pool fan-out (reference
     inference.py:456-463) with the pipeline's full persistence contract
     (cumulative chain .npy + .state.npz sidecar, block retries).
@@ -309,77 +359,19 @@ class ShardedEnsembleSampler(EnsembleSampler):
     lnprior_fn: object = None
     use_pallas: bool = False
     dv_max: float | None = None
-    interpret: bool = False
-    # Fused whole-step composition (parallel/sharded_fused.py): one Pallas
-    # half-step program per device between the two per-step all_gathers.
-    # Requires bounds/prior_means/prior_stds (the in-kernel prior) and
-    # n_line_shards == 1.
-    use_fused: bool = False
-    bounds: dict | None = None
-    prior_means: object = None
-    prior_stds: object = None
-    # Dense-catalog variant of the composition: the channel-major gather
-    # step kernel per device (parallel/sharded_fused.py:
-    # make_fused_gather_sharded_runner). gather_plan carries the
-    # (tables, per-device wchunk) pair so eligibility and construction
-    # share one table build.
-    use_fused_gather: bool = False
-    gather_plan: object = None
-    # Multi-component variant: the transposed-layout compact-span
-    # half-step kernel per device (parallel/sharded_fused.py:
-    # make_fused_multi_sharded_runner) — the GOTHAM-class 14-dim fit's
-    # fused step on the mesh. Its in-kernel ordered-velocity prior comes
-    # from prior_means/prior_stds + dv_max (no bounds dict).
-    use_fused_multi: bool = False
 
     def __post_init__(self):
         super().__post_init__()
         if self.mesh is None or self.model is None:
             raise ValueError("ShardedEnsembleSampler requires mesh and model")
-        if (self.use_fused or self.use_fused_gather) and self.bounds is None:
-            raise ValueError("use_fused requires bounds/prior_means/"
-                             "prior_stds for the in-kernel prior")
-        if self.use_fused_multi and self.prior_means is None:
-            raise ValueError("use_fused_multi requires prior_means/"
-                             "prior_stds for the in-kernel ordered prior")
         self._runners: dict[int, object] = {}
 
     def _runner(self, nsteps: int):
         if nsteps not in self._runners:
-            if self.use_fused_multi:
-                from cha1_mcmc_tpu.parallel.sharded_fused import (
-                    make_fused_multi_sharded_runner)
-
-                self._runners[nsteps] = make_fused_multi_sharded_runner(
-                    self.model, self.spec, self.grid_ints, self.grid_yerrs,
-                    self.lnprior_fn, self.prior_means, self.prior_stds,
-                    self.mesh, nsteps, nwalkers=self.nwalkers,
-                    dv_max=self.dv_max, a=self.a, interpret=self.interpret)
-            elif self.use_fused_gather:
-                from cha1_mcmc_tpu.parallel.sharded_fused import (
-                    make_fused_gather_sharded_runner)
-
-                self._runners[nsteps] = make_fused_gather_sharded_runner(
-                    self.model, self.spec, self.grid_ints, self.grid_yerrs,
-                    self.bounds, self.prior_means, self.prior_stds,
-                    self.mesh, nsteps, nwalkers=self.nwalkers,
-                    dv_max=self.dv_max, a=self.a, plan=self.gather_plan,
-                    interpret=self.interpret)
-            elif self.use_fused:
-                from cha1_mcmc_tpu.parallel.sharded_fused import (
-                    make_fused_sharded_runner)
-
-                self._runners[nsteps] = make_fused_sharded_runner(
-                    self.model, self.spec, self.grid_ints, self.grid_yerrs,
-                    self.lnprior_fn, self.bounds, self.prior_means,
-                    self.prior_stds, self.mesh, nsteps, a=self.a,
-                    interpret=self.interpret)
-            else:
-                self._runners[nsteps] = make_sharded_runner(
-                    self.model, self.spec, self.grid_ints, self.grid_yerrs,
-                    self.lnprior_fn, self.mesh, nsteps, a=self.a,
-                    use_pallas=self.use_pallas, dv_max=self.dv_max,
-                    interpret=self.interpret)
+            self._runners[nsteps] = make_sharded_runner(
+                self.model, self.spec, self.grid_ints, self.grid_yerrs,
+                self.lnprior_fn, self.mesh, nsteps, a=self.a,
+                use_pallas=self.use_pallas, dv_max=self.dv_max)
         return self._runners[nsteps]
 
     def _init_lnp(self, pos):
@@ -402,12 +394,7 @@ class ShardedEnsembleSampler(EnsembleSampler):
 def make_sharded_sampler(*, n_devices: int, n_line_shards: int, nwalkers: int,
                          ndim: int, a: float, dtype, model, spec, grid_ints,
                          grid_yerrs, lnprior_fn, use_pallas: bool = False,
-                         dv_max: float | None = None,
-                         interpret: bool = False,
-                         n_chains: int = 1,
-                         use_fused: bool = False,
-                         bounds: dict | None = None,
-                         prior_means=None, prior_stds=None,
+                         dv_max: float | None = None, n_chains: int = 1,
                          verbose: bool = True) -> "ShardedEnsembleSampler":
     """Validate the mesh request and construct a ShardedEnsembleSampler —
     the single construction point shared by the single-component
@@ -429,60 +416,16 @@ def make_sharded_sampler(*, n_devices: int, n_line_shards: int, nwalkers: int,
                          f"n_chains={n_chains}")
     mesh = make_mesh(n_devices // (n_line_shards * n_chains), n_line_shards,
                      n_chain_shards=n_chains)
-    use_fused_gather, gather_plan, use_fused_multi = False, None, False
-    if use_fused and spec.ncomp > 1:
-        # Multi-component family: the transposed-layout compact-span
-        # half-step kernel (its in-kernel prior is the ordered-velocity
-        # family, so it needs prior_means/stds + dv_max, not bounds).
-        from cha1_mcmc_tpu.parallel.sharded_fused import (
-            fused_multi_sharded_supported)
-
-        use_fused_multi = (prior_means is not None
-                           and dv_max is not None
-                           and spec.free_source_size
-                           and jnp.dtype(dtype) == jnp.float32
-                           and fused_multi_sharded_supported(
-                               model, spec, dv_max, mesh, nwalkers))
-        use_fused = False
-    elif use_fused:
-        eligible = (bounds is not None
-                    and spec.ncomp == 1
-                    and jnp.dtype(dtype) in (jnp.float32, jnp.float64))
-        if use_pallas:
-            # Dense catalogs: the channel-major gather step kernel per
-            # device. Walker sharding shrinks the per-device scoped-VMEM
-            # working set, so meshes can hold problems the single-device
-            # fused path cannot.
-            from cha1_mcmc_tpu.parallel.sharded_fused import (
-                plan_fused_gather_sharded)
-
-            if eligible and dv_max is not None:
-                gather_plan = plan_fused_gather_sharded(
-                    model, spec, mesh, nwalkers, dv_max)
-            use_fused_gather = gather_plan is not None
-            use_fused = False
-        else:
-            # Whole-grid fused step: per-device (h_local, L, C) in VMEM.
-            from cha1_mcmc_tpu.parallel.sharded_fused import (
-                fused_sharded_supported)
-
-            use_fused = (eligible
-                         and fused_sharded_supported(model, mesh, nwalkers))
     if verbose:
         from cha1_mcmc_tpu.constants import GRAY, RESET
 
         chains_txt = (f"chains={n_chains}, " if n_chains > 1 else "")
-        fused_txt = (", fused step kernel" if use_fused else
-                     ", fused gather step kernel" if use_fused_gather else
-                     ", fused multi step kernel" if use_fused_multi else "")
+        opacity_txt = ", sparse gather opacity" if use_pallas else ""
         print(f"{GRAY}Sampling on a {n_devices}-device mesh "
               f"({chains_txt}walkers={mesh.shape[WALKER_AXIS]}, "
-              f"lines={mesh.shape[LINE_AXIS]}{fused_txt}).{RESET}")
+              f"lines={mesh.shape[LINE_AXIS]}{opacity_txt}).{RESET}")
     return ShardedEnsembleSampler(
         lnprob_fn=None, nwalkers=nwalkers, ndim=ndim, a=a, dtype=dtype,
         mesh=mesh, model=model, spec=spec, grid_ints=grid_ints,
         grid_yerrs=grid_yerrs, lnprior_fn=lnprior_fn, use_pallas=use_pallas,
-        dv_max=dv_max, interpret=interpret, use_fused=use_fused,
-        bounds=bounds, prior_means=prior_means, prior_stds=prior_stds,
-        use_fused_gather=use_fused_gather, gather_plan=gather_plan,
-        use_fused_multi=use_fused_multi)
+        dv_max=dv_max)

@@ -2,7 +2,7 @@
 
 Field vocabulary matches the reference's hand-edited config dict 1:1
 (reference inference.py:585-631) so reference configs translate directly,
-plus TPU-specific execution knobs. The config serializes to JSON alongside
+plus device execution knobs. The config serializes to JSON alongside
 results for provenance (the reference keeps no record of its dict).
 """
 
@@ -56,25 +56,23 @@ class FitConfig:
     prior_path: str | None = None
     data_path: str | None = None
 
-    # TPU execution knobs (no reference equivalent; replace 'parallelize')
+    # Device execution knobs (no reference equivalent; replace 'parallelize')
     seed: int = 0
     checkpoint_every: int = 512
     dtype: str = "float32"
-    n_devices: int | None = None     # shard the fit over this many chips
+    n_devices: int | None = None     # shard the fit over this many devices
     n_line_shards: int = 1           # of which, this many shard the line axis
     n_chains: int = 1                # independent ensembles (nwalkers is the
                                      # total; enables cross-chain R-hat)
     stretch_a: float = 2.0
-    use_pallas: bool | None = None   # sparse opacity path (gather/Pallas).
+    use_pallas: bool | None = None   # sparse channel-major gather opacity.
                                      # None = auto: selected when the dense
                                      # einsum's (W/2, L, C) intermediate
                                      # would be too large (dense aromatic
                                      # catalogs, SURVEY §6 stress row) —
                                      # a default-config fit on
                                      # 1-cyanonaphthalene must never try
-                                     # to materialize ~37 GB on chip.
-    use_fused_step: bool = True      # fused whole-step Pallas kernel when
-                                     # applicable (bitwise-identical chains)
+                                     # to materialize ~37 GB on device.
     resume: bool = False             # continue an existing chain file
     profile_dir: str | None = None   # write a jax.profiler trace of sampling
 
@@ -117,7 +115,7 @@ class FitConfig:
         data_paths = d.pop("data_paths", None)
         if data_paths and "data_path" not in d:
             d["data_path"] = data_paths.get(d["mol_name"])
-        d.pop("parallelize", None)  # CPU-pool toggle has no TPU meaning
+        d.pop("parallelize", None)  # CPU-pool toggle; the mesh replaces it
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 

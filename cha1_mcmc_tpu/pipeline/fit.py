@@ -1,4 +1,4 @@
-"""Fit driver: the TPU-native equivalent of the reference's
+"""Fit driver: the device-side equivalent of the reference's
 SpectralFitMCMC orchestration (reference inference.py:63-488).
 
 Flow (reference run(), inference.py:475-488):
@@ -19,8 +19,7 @@ import jax.numpy as jnp
 
 from cha1_mcmc_tpu.constants import CYAN, GRAY, GREEN, RED, RESET
 from cha1_mcmc_tpu.catalogs import load_catalog
-from cha1_mcmc_tpu.catalogs.partition import (device_n_states,
-                                              fit_device_cheb)
+from cha1_mcmc_tpu.catalogs.partition import fit_device_cheb
 from cha1_mcmc_tpu.models.forward import SpectralModel
 from cha1_mcmc_tpu.inference import (
     ParamSpec,
@@ -43,16 +42,26 @@ from cha1_mcmc_tpu.reduce.datagrid import (
 from cha1_mcmc_tpu.pipeline.config import FitConfig
 from cha1_mcmc_tpu.pipeline.plotting import plot_results
 
-__all__ = ["SpectralFit"]
+__all__ = ["SpectralFit", "dense_catalog"]
+
+
+def dense_catalog(model: SpectralModel) -> bool:
+    """The automatic opacity choice (FitConfig.use_pallas=None): the sparse
+    gather for dense catalogs. The vmapped einsum materializes a
+    (W/2, L, C) intermediate per half-step, which for aromatic catalogs
+    (35,460-line 1-cyanonaphthalene x 2048 channels x 64 walkers = ~19 GB
+    f32) cannot compile, while the gather touches only the in-window
+    (line, channel) pairs."""
+    return model.n_lines * model.n_channels > 4_000_000
 
 
 class SpectralFit:
-    """End-to-end single-molecule fit on TPU."""
+    """End-to-end single-molecule fit on the default JAX device."""
 
     def __init__(self, config: FitConfig):
         from cha1_mcmc_tpu.utils import enable_compilation_cache
 
-        enable_compilation_cache()  # reruns skip the XLA compile queue
+        enable_compilation_cache()  # reruns skip recompilation
         self.config = config
         self.spec = ParamSpec(ncomp=1, fixed_source_size=config.fixed_source_size)
         self.dtype = jnp.dtype(config.dtype)
@@ -60,10 +69,10 @@ class SpectralFit:
         self.sampler: EnsembleSampler | None = None
 
     def _precision_scope(self):
-        """Scoped full-precision verification mode (CPU; TPUs have no
-        native f64): dtype="float64" runs inside jax.experimental's
-        enable_x64 context instead of flipping the process-global
-        jax_enable_x64 flag for the rest of the interpreter."""
+        """Scoped full-precision verification mode: dtype="float64" runs
+        inside the enable_x64 context instead of flipping the
+        process-global jax_enable_x64 flag for the rest of the
+        interpreter."""
         if self.config.dtype == "float64" and not jax.config.jax_enable_x64:
             return jax.enable_x64()
         import contextlib
@@ -108,9 +117,9 @@ class SpectralFit:
         if model.q_model.kind == "states":
             # Device Chebyshev surrogate over the sampler's Tex prior
             # box (partition.py:fit_device_cheb): the aromatics'
-            # 16k-state Boltzmann walk measured ~95% of the dense fused
-            # kernel's per-eval cost on the v5e; a ulp-equivalent
-            # degree-~16 fit replaces it everywhere on-device, while
+            # 16k-state Boltzmann walk is a (walkers x states) exp per
+            # evaluation; a ulp-equivalent degree-~16 fit replaces it
+            # on-device, while
             # every host/f64 oracle path keeps the exact reference
             # state sum. Out-of-box Tex is -inf by the prior before
             # Q's value matters.
@@ -118,32 +127,6 @@ class SpectralFit:
             model = dataclasses.replace(
                 model, q_model=fit_device_cheb(model.q_model, t_lo, t_hi))
         return model
-
-    @staticmethod
-    def _fused_fits_vmem(model, nwalkers: int, budget_bytes: int = 48 << 20) -> bool:
-        """Can the fused step kernel's working set live in VMEM?
-
-        The kernel is a single gridless program: its dominant temporaries
-        are a few (W/2, L, C) f32 model intermediates and the (W/2, W)
-        one-hot selectors. Oversized problems fall back to the general
-        lax.scan sampler instead of failing Mosaic compilation."""
-        h = nwalkers // 2
-        model_bytes = 4 * h * model.n_lines * model.n_channels * 4
-        selector_bytes = 3 * h * nwalkers * 4
-        n_states = device_n_states(model.q_model)
-        q_bytes = 2 * h * n_states * 4
-        return model_bytes + selector_bytes + q_bytes <= budget_bytes
-
-    def _fused_gather_ok(self, model, cfg) -> bool:
-        """Plan the dense fused kernel (channel-major tables + walker
-        chunk); the plan is stashed so the selection check and the kernel
-        build share ONE table construction (seconds of host time on a
-        35k-line catalog)."""
-        from cha1_mcmc_tpu.sampler.fused_gather import plan_fused_gather
-
-        self._gather_plan = plan_fused_gather(
-            model, self.spec, cfg.bounds["dV"][1], nwalkers=cfg.nwalkers)
-        return self._gather_plan is not None
 
     def _is_within_bounds(self, theta) -> bool:
         """Host-side box check for walker init (reference inference.py:169-190)."""
@@ -178,13 +161,7 @@ class SpectralFit:
         lnlike = build_lnlike(model, self.spec, grid.ints, grid.yerrs)
         use_pallas = cfg.use_pallas
         if use_pallas is None:
-            # Auto-select the sparse opacity path for dense catalogs: the
-            # vmapped einsum materializes a (W/2, L, C) intermediate per
-            # half-step, which for aromatic catalogs (35,460-line
-            # 1-cyanonaphthalene x 2048 channels x 64 walkers = ~19 GB
-            # f32) cannot compile — the gather path is both required and
-            # ~50-100x faster there (BENCH dense section).
-            use_pallas = model.n_lines * model.n_channels > 4_000_000
+            use_pallas = dense_catalog(model)
             if use_pallas:
                 print(f"{GRAY}Dense catalog ({model.n_lines} lines x "
                       f"{model.n_channels} channels): auto-selected the "
@@ -197,9 +174,7 @@ class SpectralFit:
 
             lnprob = build_lnprob_batched(
                 model, self.spec, grid.ints, grid.yerrs, lnprior,
-                use_pallas=True, dv_max=cfg.bounds["dV"][1],
-                dv_min=cfg.bounds["dV"][0], vlsr_bounds=cfg.bounds["vlsr"],
-                interpret=jax.default_backend() == "cpu")
+                use_pallas=True, dv_max=cfg.bounds["dV"][1])
         else:
             lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs, lnprior)
 
@@ -208,18 +183,15 @@ class SpectralFit:
             print(f"{GRAY}Initializing Ncol via MLE.{RESET}")
             if use_pallas:
                 # The scalar lnlike closes over the (L, C) velocity grid —
-                # a ~290 MB HLO constant on dense catalogs that cannot
-                # compile here; the gather-table batched lnlike carries
-                # only the active-line tables (inference/likelihood.py).
+                # a ~290 MB constant on dense catalogs; the gather-table
+                # batched lnlike carries only the active-line tables
+                # (inference/likelihood.py).
                 from cha1_mcmc_tpu.inference.likelihood import (
                     build_lnlike_batched)
 
                 lnlike_mle, mle_batched = build_lnlike_batched(
                     model, self.spec, grid.ints, grid.yerrs,
-                    use_pallas=True, dv_max=cfg.bounds["dV"][1],
-                    dv_min=cfg.bounds["dV"][0],
-                    vlsr_bounds=cfg.bounds["vlsr"],
-                    interpret=jax.default_backend() == "cpu"), True
+                    use_pallas=True, dv_max=cfg.bounds["dV"][1]), True
             else:
                 lnlike_mle, mle_batched = lnlike, False
             try:
@@ -236,12 +208,13 @@ class SpectralFit:
                 raise
 
         if sharded:
-            # Multi-chip sampling: shard walkers (and optionally catalog
-            # lines) over an ICI mesh, with the full single-device sampler
-            # contract (checkpoints, .state.npz resume, retries). Replaces
-            # the reference's multiprocessing pool (inference.py:456-463).
-            # n_chains > 1 composes K independent ensembles with the mesh
-            # (a 'chains' axis) for honest cross-chain R-hat at pod scale.
+            # Multi-device sampling: shard walkers (and optionally catalog
+            # lines) over a device mesh, with the full single-device
+            # sampler contract (checkpoints, .state.npz resume, retries).
+            # Replaces the reference's multiprocessing pool
+            # (inference.py:456-463). n_chains > 1 composes K independent
+            # ensembles with the mesh (a 'chains' axis) for cross-chain
+            # R-hat.
             from cha1_mcmc_tpu.parallel import make_sharded_sampler
 
             self.sampler = make_sharded_sampler(
@@ -250,93 +223,14 @@ class SpectralFit:
                 dtype=self.dtype, model=model, spec=self.spec,
                 grid_ints=grid.ints, grid_yerrs=grid.yerrs,
                 lnprior_fn=lnprior, use_pallas=use_pallas,
-                dv_max=cfg.bounds["dV"][1], n_chains=cfg.n_chains,
-                # Fused whole-step composition (one Pallas half-step
-                # program per device between the two per-step
-                # all_gathers) when eligible — keeps the us-regime step
-                # on the mesh instead of reverting to the general scan.
-                # make_sharded_sampler routes by use_pallas: whole-grid
-                # kernel for small models, channel-major gather kernel
-                # for dense catalogs (walker sharding shrinks the
-                # per-device scoped-VMEM working set, so meshes regain
-                # the fused step on problems a single chip cannot hold).
-                # Not on CPU (same interpreter-tracing-cost rationale as
-                # the single-device fused selection below; direct
-                # make_fused_*_sharded_runner calls cover CPU tests).
-                use_fused=(cfg.use_fused_step
-                           and jax.default_backend() != "cpu"),
-                bounds=cfg.bounds, prior_means=prior_means,
-                prior_stds=prior_stds,
-                interpret=jax.default_backend() == "cpu")
+                dv_max=cfg.bounds["dV"][1], n_chains=cfg.n_chains)
         elif cfg.n_chains > 1:
             from cha1_mcmc_tpu.sampler import MultiChainSampler
 
-            run_fn = None
-            if (cfg.use_fused_step and not use_pallas
-                    and self.spec.ncomp == 1
-                    and self.dtype == jnp.float32
-                    and jax.default_backend() != "cpu"
-                    and self._fused_fits_vmem(
-                        model, cfg.nwalkers // cfg.n_chains)):
-                # K independent chains keep the fused whole-step kernel
-                # (vmapped over the chain axis; bitwise-equal per chain).
-                from cha1_mcmc_tpu.sampler import make_fused_ensemble
-
-                run_fn = make_fused_ensemble(
-                    model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
-                    prior_means, prior_stds, a=cfg.stretch_a)
             self.sampler = MultiChainSampler(
                 lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
                 a=cfg.stretch_a, dtype=self.dtype, batched=use_pallas,
-                n_chains=cfg.n_chains, run_fn=run_fn)
-        elif (cfg.use_fused_step and use_pallas
-              and self.spec.ncomp == 1
-              and self.dtype == jnp.float32
-              and jax.default_backend() != "cpu"
-              and self._fused_gather_ok(model, cfg)):
-            # Dense-catalog fused whole-step kernel: the channel-major
-            # gather tables re-expressed as per-entry line constants so
-            # the entire ensemble step (tau recompute + windowed Gaussian
-            # + overflow scatter + stretch move) runs as one Pallas
-            # program per k steps (sampler/fused_gather.py) — removes the
-            # ~40% per-step dispatch overhead the general scan pays on
-            # the 35k-line aromatics (BASELINE.md dense chain).
-            from cha1_mcmc_tpu.sampler import FusedEnsembleSampler
-            from cha1_mcmc_tpu.sampler.fused_gather import (
-                make_fused_ensemble_gather)
-
-            print(f"{GRAY}Dense catalog: fused channel-major step kernel "
-                  f"selected.{RESET}")
-            run_fn = make_fused_ensemble_gather(
-                model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
-                prior_means, prior_stds, a=cfg.stretch_a,
-                dv_max=cfg.bounds["dV"][1], nwalkers=cfg.nwalkers,
-                plan=self._gather_plan)
-            self.sampler = FusedEnsembleSampler(
-                lnprob_fn=lnprob, nwalkers=cfg.nwalkers,
-                ndim=self.spec.ndim, a=cfg.stretch_a, dtype=self.dtype,
-                run_fn=run_fn, batched=True)
-        elif (cfg.use_fused_step and not use_pallas
-              and self.spec.ncomp == 1
-              and self.dtype == jnp.float32
-              and jax.default_backend() != "cpu"
-              and self._fused_fits_vmem(model, cfg.nwalkers)):
-            # Fused whole-step Pallas kernel: one program per k ensemble
-            # steps; chains are bitwise-identical to the general sampler
-            # (sampler/fused.py), ~1.4x faster at the flagship size. Both
-            # analytic and state-sum Q(T) models are supported in-kernel.
-            # Not auto-selected on CPU: the interpreter pays ~30 s of
-            # tracing per fit, which the general path avoids (tests that
-            # want the bitwise check call make_fused_ensemble directly).
-            from cha1_mcmc_tpu.sampler import (FusedEnsembleSampler,
-                                               make_fused_ensemble)
-
-            run_fn = make_fused_ensemble(
-                model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
-                prior_means, prior_stds, a=cfg.stretch_a)
-            self.sampler = FusedEnsembleSampler(
-                lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
-                a=cfg.stretch_a, dtype=self.dtype, run_fn=run_fn)
+                n_chains=cfg.n_chains)
         else:
             self.sampler = EnsembleSampler(
                 lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,

@@ -1,6 +1,6 @@
 """Multi-component (GOTHAM / TMC-1 style) fit driver.
 
-TPU-native equivalent of the reference's 4-component TMC-1 pipeline
+Device-side equivalent of the reference's 4-component TMC-1 pipeline
 (reference scripts/MCMC/TMC1_four_component.py): N velocity components with
 per-component source size / column density / vlsr and shared Tex / dV,
 ordered-velocity priors, GOTHAM-variant data reduction, and the
@@ -70,23 +70,16 @@ class MultiFitConfig:
     checkpoint_every: int = 512
     dtype: str = "float32"
     stretch_a: float = 2.0
-    use_sparse_opacity: bool = True  # channel-major gather opacity (~2x at
-                                     # GOTHAM sparsity; set False for the
-                                     # dense einsum path). Single-device
-                                     # only: the sharded (n_devices > 1)
-                                     # runner keeps its einsum formulation.
-    use_fused_step: bool = True      # whole-ensemble-step Pallas kernel
-                                     # (sampler/fused_multi.py) when the
-                                     # problem fits VMEM — trajectories
-                                     # bitwise-equal to the general
-                                     # sampler, ~5-10x faster per step on
-                                     # GOTHAM-class fits. Auto-skipped on
-                                     # CPU / sharded / f64 runs.
+    use_sparse_opacity: bool = True  # channel-major gather opacity (set
+                                     # False for the dense einsum path).
+                                     # Single-device only: the sharded
+                                     # (n_devices > 1) runner keeps its
+                                     # einsum formulation.
     dv_bound: float = 0.3            # hard upper bound on dV, shared by the
                                      # prior box (ordered_velocity_lnprior)
                                      # and the gather table's static window
                                      # (reference TMC1_four_component.py:224)
-    n_devices: int | None = None     # shard the fit over this many chips
+    n_devices: int | None = None     # shard the fit over this many devices
     n_line_shards: int = 1           # of which, this many shard the line axis
     n_chains: int = 1                # independent ensembles (nwalkers is the
                                      # total; enables cross-chain R-hat)
@@ -119,7 +112,7 @@ class MultiComponentFit:
     def __init__(self, config: MultiFitConfig):
         from cha1_mcmc_tpu.utils import enable_compilation_cache
 
-        enable_compilation_cache()  # reruns skip the XLA compile queue
+        enable_compilation_cache()  # reruns skip recompilation
         self.config = config
         self.spec = ParamSpec(ncomp=config.ncomp)
         self.dtype = jnp.dtype(config.dtype)
@@ -148,22 +141,6 @@ class MultiComponentFit:
         print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}")
         return grid
 
-    def _fused_eligible(self, model: SpectralModel,
-                        nwalkers: int | None = None) -> bool:
-        """Auto-select the fused whole-step kernel when it applies: TPU
-        backend (the CPU interpreter pays ~30 s of tracing per fit),
-        float32, and a problem whose working set fits VMEM (sized for
-        `nwalkers` — the per-chain count under MultiChainSampler)."""
-        cfg = self.config
-        if not cfg.use_fused_step or self.dtype != jnp.float32:
-            return False
-        if jax.default_backend() == "cpu":
-            return False
-        from cha1_mcmc_tpu.sampler.fused_multi import fused_multi_supported
-
-        return fused_multi_supported(model, self.spec, cfg.dv_bound,
-                                     nwalkers=nwalkers or cfg.nwalkers)
-
     def build_model(self, grid: Datagrid) -> SpectralModel:
         cfg = self.config
         if self.catalog is None:
@@ -179,8 +156,8 @@ class MultiComponentFit:
                          prior_means, prior_stds) -> SpectralModel:
         """Device Chebyshev surrogate for state-sum Q (same rationale as
         the single-component pipeline, SpectralFit.build_model: the
-        16k-state Boltzmann walk measured ~95% of the dense fused
-        kernel's per-eval cost; host/f64 oracles keep the exact sum).
+        16k-state Boltzmann walk is a (walkers x states) exp per
+        evaluation; host/f64 oracles keep the exact sum).
         Unlike the single-component prior, the multifit Tex prior has no
         hard upper box (reference TMC1_four_component.py bounds Tex
         below only), so the fit interval is sized from the ACTUAL
@@ -250,91 +227,41 @@ class MultiComponentFit:
                 nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
                 dtype=self.dtype, model=model, spec=self.spec,
                 grid_ints=grid.ints, grid_yerrs=grid.yerrs,
-                lnprior_fn=lnprior, n_chains=cfg.n_chains,
-                # Keep the fused step on the mesh when eligible: the
-                # transposed-layout multi-component half-step kernel per
-                # device between the two per-step all_gathers (not on
-                # CPU — same interpreter-tracing-cost rationale as the
-                # single-component selection in pipeline/fit.py; direct
-                # make_fused_multi_sharded_runner calls cover CPU tests).
-                use_fused=(cfg.use_fused_step
-                           and jax.default_backend() != "cpu"),
-                dv_max=cfg.dv_bound, prior_means=prior_means,
-                prior_stds=prior_stds)
+                lnprior_fn=lnprior, n_chains=cfg.n_chains)
         elif cfg.n_chains > 1:
-            # K independent ensembles (cross-chain R-hat); the fused
-            # multi-component kernel rides along vmapped over the chain
-            # axis when the per-chain ensemble is eligible.
+            # K independent ensembles (cross-chain R-hat).
             from cha1_mcmc_tpu.inference import build_lnprob_batched
             from cha1_mcmc_tpu.sampler import MultiChainSampler
 
             lnprob_b = build_lnprob_batched(
                 model, self.spec, grid.ints, grid.yerrs, lnprior,
-                use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
-            run_fn = None
-            if self._fused_eligible(model,
-                                    nwalkers=cfg.nwalkers // cfg.n_chains):
-                from cha1_mcmc_tpu.sampler.fused_multi import (
-                    make_fused_ensemble_multi)
-
-                run_fn = make_fused_ensemble_multi(
-                    model, self.spec, grid.ints, grid.yerrs, prior_means,
-                    prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a,
-                    nwalkers=cfg.nwalkers // cfg.n_chains)
+                use_pallas=True, dv_max=cfg.dv_bound)
             self.sampler = MultiChainSampler(
                 lnprob_fn=lnprob_b, nwalkers=cfg.nwalkers, ndim=cfg.ndim,
                 a=cfg.stretch_a, dtype=self.dtype, batched=True,
-                n_chains=cfg.n_chains, run_fn=run_fn)
-        elif self._fused_eligible(model):
-            # Fused whole-ensemble-step Pallas kernel: one program per k
-            # steps (sampler/fused_multi.py). Trajectories match the
-            # general sampler bitwise on the tested streams; the two lnp
-            # paths differ by f32 ulps, so a marginal acceptance can in
-            # principle flip on an unlucky stream (statistically
-            # identical either way). lnprob_fn stays the batched gather
-            # path (used only to initialize lnp).
+                n_chains=cfg.n_chains)
+        elif cfg.use_sparse_opacity:
+            # Channel-major gather opacity: the GOTHAM datagrids are
+            # ~1.5% window-dense (each covered line touches ~17 of the
+            # 1133 channels at the 0.3 km/s dV prior bound). cfg.dv_bound
+            # feeds BOTH the prior's hard dV bound and the static table's
+            # window, so the table is exact for every in-bounds walker;
+            # lnprob agrees with the dense path to f32 round-off
+            # (out-of-bounds proposals are -inf either way).
             from cha1_mcmc_tpu.inference import build_lnprob_batched
-            from cha1_mcmc_tpu.sampler import FusedEnsembleSampler
-            from cha1_mcmc_tpu.sampler.fused_multi import (
-                make_fused_ensemble_multi)
 
             lnprob_b = build_lnprob_batched(
                 model, self.spec, grid.ints, grid.yerrs, lnprior,
-                use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
-            run_fn = make_fused_ensemble_multi(
-                model, self.spec, grid.ints, grid.yerrs, prior_means,
-                prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a,
-                nwalkers=cfg.nwalkers)
-            self.sampler = FusedEnsembleSampler(
+                use_pallas=True, dv_max=cfg.dv_bound)
+            self.sampler = EnsembleSampler(
                 lnprob_fn=lnprob_b, nwalkers=cfg.nwalkers, ndim=cfg.ndim,
-                a=cfg.stretch_a, dtype=self.dtype, batched=True,
-                run_fn=run_fn)
+                a=cfg.stretch_a, dtype=self.dtype, batched=True)
         else:
-            if cfg.use_sparse_opacity:
-                # Channel-major gather opacity: the GOTHAM datagrids are
-                # ~1.5% window-dense (each covered line touches ~17 of the
-                # 1133 channels at the 0.3 km/s dV prior bound), so the
-                # sparse path halves the per-step cost (measured v5e:
-                # 54 vs 110 us/step at 128 walkers). cfg.dv_bound feeds
-                # BOTH the prior's hard dV bound and the static table's
-                # window, so the table is exact for every in-bounds
-                # walker; lnprob agrees with the dense path to f32
-                # round-off (out-of-bounds proposals are -inf either way).
-                from cha1_mcmc_tpu.inference import build_lnprob_batched
-
-                lnprob_b = build_lnprob_batched(
-                    model, self.spec, grid.ints, grid.yerrs, lnprior,
-                    use_pallas=True, pallas_kernel="gather",
-                    dv_max=cfg.dv_bound)
-                self.sampler = EnsembleSampler(
-                    lnprob_fn=lnprob_b, nwalkers=cfg.nwalkers, ndim=cfg.ndim,
-                    a=cfg.stretch_a, dtype=self.dtype, batched=True)
-            else:
-                lnprob = build_lnprob(model, self.spec, grid.ints,
-                                      grid.yerrs, lnprior)
-                self.sampler = EnsembleSampler(
-                    lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=cfg.ndim,
-                    a=cfg.stretch_a, dtype=self.dtype)
+            lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs,
+                                  lnprior)
+            self.sampler = EnsembleSampler(
+                lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=cfg.ndim,
+                a=cfg.stretch_a, dtype=self.dtype)
         key = jax.random.PRNGKey(cfg.seed)
 
         from cha1_mcmc_tpu.utils import Throughput

@@ -108,12 +108,19 @@ def plot_results(chain_path: str, param_labels: list[str],
                  include_trace: bool = False, burn_in_frac: float = 0.2,
                  dpi: int = 200):
     """Corner plot + optional trace plots + summary table
-    (reference inference.py:491-581). Saves <chain>_corner.png."""
-    from cha1_mcmc_tpu.pipeline.plots import _mpl
-
-    plt = _mpl()
-
+    (reference inference.py:491-581). Saves <chain>_corner.png; without
+    matplotlib the plots are skipped with a note and only the summary
+    table is printed."""
     chain = np.load(chain_path)
+    try:
+        from cha1_mcmc_tpu.pipeline.plots import _mpl
+
+        plt = _mpl()
+    except ImportError:
+        print(f"\n{GRAY}matplotlib is not installed: skipping the corner "
+              f"plot of {chain_path}.{RESET}")
+        return summarize_posterior(chain, param_labels, burn_in_frac)
+
     samples = _flatten_chain(chain, burn_in_frac)
     ndim = samples.shape[1]
     labels = list(param_labels)[:ndim]

@@ -2,9 +2,6 @@
 
 from cha1_mcmc_tpu.sampler.stretch import (EnsembleSampler, MultiChainSampler,
                                             run_ensemble, run_ensemble_chains)
-from cha1_mcmc_tpu.sampler.fused import FusedEnsembleSampler, make_fused_ensemble
-from cha1_mcmc_tpu.sampler.fused_multi import (fused_multi_supported,
-                                               make_fused_ensemble_multi)
 from cha1_mcmc_tpu.sampler.chain import (
     save_chain,
     load_chain,
@@ -22,10 +19,6 @@ from cha1_mcmc_tpu.sampler.diagnostics import (
 __all__ = [
     "EnsembleSampler",
     "MultiChainSampler",
-    "FusedEnsembleSampler",
-    "make_fused_ensemble",
-    "make_fused_ensemble_multi",
-    "fused_multi_supported",
     "run_ensemble",
     "run_ensemble_chains",
     "save_chain",

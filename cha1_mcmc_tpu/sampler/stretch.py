@@ -13,9 +13,9 @@ requirements.txt pin emcee==3.1.6):
     via z = ((a-1) u + 1)^2 / a, and proposes Y = c + z (s - c);
   * acceptance: ln U < (ndim - 1) ln z + lnprob(Y) - lnprob(s).
 
-TPU-native realization: the whole chain is one `lax.scan` over steps; each
-half-update evaluates the vmapped lnprob for W/2 proposals as a single
-fused device program. The reference instead ships each walker's theta to a
+Device realization: the whole chain is one `lax.scan` over steps; each
+half-update evaluates the vmapped lnprob for W/2 proposals in one device
+program. The reference instead ships each walker's theta to a
 forked CPU process through pickled pipes (reference inference.py:456-463).
 Fixed PRNG keys make chains bitwise reproducible.
 """
@@ -29,6 +29,7 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax.errors import JaxRuntimeError as _DeviceError
 
 from cha1_mcmc_tpu.sampler.chain import last_position
 
@@ -37,10 +38,27 @@ __all__ = ["run_ensemble", "run_ensemble_chains", "EnsembleSampler",
 
 logger = logging.getLogger(__name__)
 
-try:  # jax >= 0.4.14 re-exports the runtime error type
-    from jax.errors import JaxRuntimeError as _DeviceError
-except ImportError:  # pragma: no cover
-    from jaxlib.xla_extension import XlaRuntimeError as _DeviceError
+
+class _PlainProgress:
+    """Per-block progress line, for hosts without tqdm."""
+
+    def __init__(self, total: int):
+        self.total, self.done = total, 0
+
+    def update(self, n: int) -> None:
+        self.done += n
+        print(f"MCMC sampling: {self.done}/{self.total} steps", flush=True)
+
+    def close(self) -> None:
+        pass
+
+
+def _progress(total: int):
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return _PlainProgress(total)
+    return tqdm(total=total, desc="MCMC sampling", colour="white")
 
 
 def _state_path(chain_file: str) -> str:
@@ -74,16 +92,16 @@ def run_ensemble(lnprob_fn, pos0, lnp0, key, nsteps: int, a: float = 2.0,
     """Run `nsteps` ensemble steps from (pos0, lnp0).
 
     lnprob_fn: scalar theta -> lnprob (vmapped internally), or — with
-    batched=True — an explicitly batched (N, D) -> (N,) function (e.g. the
-    Pallas-backed build_lnprob_batched).
+    batched=True — an explicitly batched (N, D) -> (N,) function (e.g.
+    build_lnprob_batched).
     pos0: (W, D) initial walker coordinates; lnp0: (W,) their lnprob.
     Each of the `nsteps` recorded steps advances the ensemble by `thin`
     raw ensemble moves. Returns (chain (nsteps, W, D), lnps (nsteps, W),
     accepted (nsteps,), final (pos, lnp)).
 
     All randomness is generated upfront in four bulk ops and consumed as
-    scan inputs: this cuts the per-step op count by ~2.4x versus per-step
-    key splitting (59 -> 25 us/step at W=128 on a v5e). Memory for the
+    scan inputs, which keeps per-step key splitting out of the scan body
+    (about 2.4x fewer ops per step). Memory for the
     pre-generated uniforms is ~16 * nsteps * thin * W bytes — callers with
     very long runs should block them (EnsembleSampler checkpoints do).
     """
@@ -134,7 +152,7 @@ def run_ensemble(lnprob_fn, pos0, lnp0, key, nsteps: int, a: float = 2.0,
 def run_ensemble_chains(lnprob_fn, pos0, lnp0, keys, nsteps: int, a: float = 2.0,
                         thin: int = 1, batched: bool = False):
     """Run K independent ensembles concurrently (vmapped over the chain
-    axis) — saturates the chip at small per-chain walker counts (throughput
+    axis) — saturates the device at small per-chain walker counts (throughput
     scales like a single ensemble of K*W walkers) and feeds cross-chain
     R-hat diagnostics.
 
@@ -154,8 +172,8 @@ class EnsembleSampler:
 
     The reference drives emcee one step at a time, saving the cumulative
     chain as a (nwalkers, nsteps, ndim) .npy after every step and resuming
-    from chain[:, -1, :] (reference inference.py:460-473). At TPU speeds a
-    per-step host write would dominate, so steps run on device in blocks of
+    from chain[:, -1, :] (reference inference.py:460-473). At device speeds
+    a per-step host write would dominate, so steps run on device in blocks of
     `checkpoint_every` and the same .npy contract is honored at block
     boundaries.
     """
@@ -230,17 +248,12 @@ class EnsembleSampler:
         pos = jnp.asarray(pos, dtype=self.dtype)
         # lnp0 (from load_state) continues with the *saved* lnp rather
         # than recomputing: a freshly-compiled lnprob program can round
-        # its reductions differently (and the fused kernel's in-kernel
-        # chi-2 differs by an f32 ulp from the scalar path), which could
-        # flip a marginal acceptance and break bitwise resume parity.
+        # its reductions differently, which could flip a marginal
+        # acceptance and break bitwise resume parity.
         lnp = self._init_lnp(pos) if lnp0 is None else jnp.asarray(lnp0)
         done = 0
         retries = 0  # per-block; reset after each successful block
-        iterator = None
-        if progress:
-            from tqdm import tqdm
-
-            iterator = tqdm(total=nsteps, desc="MCMC sampling", colour="white")
+        iterator = _progress(nsteps) if progress else None
         while done < nsteps:
             block = min(checkpoint_every, nsteps - done)
             key, sub = jax.random.split(key)
@@ -301,7 +314,7 @@ class MultiChainSampler(EnsembleSampler):
     chain axis via run_ensemble_chains) with the same chain-file contract.
 
     The reference has no multi-chain concept; this exists because (a) at
-    small per-chain walker counts independent chains saturate the chip —
+    small per-chain walker counts independent chains saturate the device —
     throughput scales like one ensemble of K*W walkers — and (b) truly
     independent chains make the Gelman-Rubin R-hat an honest convergence
     gate. run_mcmc takes pos of shape (K, W, D); the recorded chain pools
@@ -312,10 +325,6 @@ class MultiChainSampler(EnsembleSampler):
     """
 
     n_chains: int = 2  # nwalkers is the TOTAL (K * per-chain) walker count
-    # Optional fused whole-step run (make_fused_ensemble's contract):
-    # vmapped over the chain axis, bitwise-equal per chain to calling it
-    # chain-by-chain, so K chains keep the fused kernel's step rate.
-    run_fn: callable = None
 
     def __post_init__(self):
         super().__post_init__()
@@ -338,20 +347,9 @@ class MultiChainSampler(EnsembleSampler):
     def _run_block(self, pos, lnp, key, nsteps: int, thin: int):
         pos = self._shape_pos(pos)
         keys = jax.random.split(key, self.n_chains)
-        if self.run_fn is not None:
-            # thin via exact raw-trajectory subsampling, as in
-            # FusedEnsembleSampler._run_block.
-            chain, lnps, acc, final = jax.vmap(
-                lambda p, l, k: self.run_fn(p, l, k, nsteps * thin))(
-                    pos, lnp, keys)
-            if thin != 1:
-                chain = chain[:, thin - 1::thin]
-                lnps = lnps[:, thin - 1::thin]
-                acc = acc.reshape(self.n_chains, nsteps, thin).sum(axis=-1)
-        else:
-            chain, lnps, acc, final = run_ensemble_chains(
-                self.lnprob_fn, pos, lnp, keys, nsteps=nsteps, a=self.a,
-                thin=thin, batched=self.batched)
+        chain, lnps, acc, final = run_ensemble_chains(
+            self.lnprob_fn, pos, lnp, keys, nsteps=nsteps, a=self.a,
+            thin=thin, batched=self.batched)
         K, S, W, D = chain.shape
         # (K, S, W, D) -> (S, K*W, D): the base class transposes each block
         # to the pooled (K*W, S, D) emcee layout

@@ -64,7 +64,6 @@ def test_partition_function_parity(name):
         assert np.isclose(functions.calc_q(ref, T), qm.host_eval(T), rtol=1e-12), (name, T)
 
 
-@requires_reference
 def test_partition_function_jittable(hc5n_catalog):
     import jax
     import jax.numpy as jnp
@@ -132,7 +131,6 @@ def test_calc_qvib_matches_reference_formula():
     assert np.isclose(float(calc_qvib(vibs, jnp.float32(T), xp=jnp)), expected, rtol=1e-5)
 
 
-@requires_reference
 def test_scale_temp_roundtrip(hc5n_catalog):
     """Scaling CT->T->CT returns the original intensities; scaling the
     catalog intensities from 300 K reproduces direct simulation ratios."""
@@ -225,32 +223,29 @@ def test_qn12_reads_to_end_of_line(tmp_path):
         np.testing.assert_array_equal(nat["qn"], mine.qn)
 
 
-@requires_reference
-def test_chebyshev_device_q_surrogate():
+def test_chebyshev_device_q_surrogate(tmp_path):
     """fit_device_cheb (catalogs/partition.py): the device Chebyshev
     surrogate for huge state-sum Q models — the aromatics' 16k-state
-    Boltzmann walk measured ~95% of the dense fused kernel's per-eval
-    cost on the v5e, while a degree-~16 fit reproduces Q far below f32
-    resolution. Gates: (a) the fit meets its tolerance against the exact
-    host state sum across the box, (b) host_eval is EXACTLY the
-    reference formula (the f64 parity oracle must never see the
-    surrogate), (c) the jitted device path uses the surrogate, (d)
-    device_n_states reports 0 so the fused planners drop the state-sum
-    machinery, (e) analytic models pass through untouched."""
+    Boltzmann sum is a (walkers x states) exp per evaluation, while a
+    degree-~16 fit reproduces Q far below f32 resolution. On a seeded
+    16,488-state model (the size of 1-cyanonaphthalene's): (a) the fit
+    meets its tolerance against the exact host state sum across the box,
+    (b) host_eval is EXACTLY the state-sum formula (the f64 parity oracle
+    must never see the surrogate), (c) the jitted device path uses the
+    surrogate, (d) analytic models pass through untouched."""
     import jax
     import jax.numpy as jnp
 
-    from cha1_mcmc_tpu.catalogs.partition import (device_n_states,
-                                                  fit_device_cheb)
+    from cha1_mcmc_tpu.catalogs.partition import QModel, fit_device_cheb
+    from cha1_mcmc_tpu.catalogs.synthetic import write_hc5n_inputs
 
-    cat = load_catalog(os.path.join(CATALOG_DIR, "1-cyanonapthalene.cat"))
-    qm = q_model_for_catalog(cat)
-    assert qm.kind == "states"
-    assert device_n_states(qm) == qm.g.size
+    rng = np.random.default_rng(0)
+    J = rng.integers(0, 120, 16_488)
+    qm = QModel(kind="states", g=(2.0 * J + 1.0),
+                E=rng.exponential(40.0, J.size))
 
     qd = fit_device_cheb(qm, 3.5, 12.0)
     assert qd.cheb_coeffs is not None and qd.cheb_interval == (3.5, 12.0)
-    assert device_n_states(qd) == 0
 
     T = np.linspace(3.5, 12.0, 1777)
     exact = qm.host_eval(T)
@@ -262,7 +257,8 @@ def test_chebyshev_device_q_surrogate():
     # (c) the jitted path evaluates the surrogate (f32 here)
     got = np.asarray(jax.jit(lambda t: qd(t))(jnp.asarray(T, jnp.float32)))
     assert np.max(np.abs(got / exact - 1.0)) < 1e-4
-    # (e) analytic models untouched
+    # (d) analytic models untouched
+    cat_folder, _ = write_hc5n_inputs(str(tmp_path), seed=0)
     qa = q_model_for_catalog(load_catalog(
-        os.path.join(CATALOG_DIR, "hc5n_hfs.cat")))
+        os.path.join(cat_folder, "hc5n_hfs.cat")))
     assert fit_device_cheb(qa, 3.5, 12.0) is qa

@@ -159,12 +159,11 @@ def test_diagnostics_flag_unconverged():
     assert gelman_rubin(chain).max() > 2.0
 
 
-@requires_reference
-def test_fit_resume_appends(tmp_path):
+def test_fit_resume_appends(hc5n_inputs, tmp_path):
     from cha1_mcmc_tpu import FitConfig, SpectralFit
 
     base = dict(mol_name="hc5n_hfs", template_run=True, nwalkers=16,
-                cat_folder=CATALOG_DIR, data_path=HC5N_DATA,
+                cat_folder=hc5n_inputs[0], data_path=hc5n_inputs[1],
                 fit_folder=str(tmp_path / "results"), seed=0,
                 checkpoint_every=20, MLE_for_Ncol=False)
     cfg = FitConfig(nruns=30, **base)
@@ -229,14 +228,13 @@ def test_dense_catalog_batched_fit(tmp_path):
     assert np.isclose(med[2], truth["vlsr"], atol=0.05)
 
 
-@requires_reference
-def test_exact_resume_equals_uninterrupted(tmp_path):
+def test_exact_resume_equals_uninterrupted(hc5n_inputs, tmp_path):
     """A run interrupted at a checkpoint and resumed via the state sidecar
     reproduces the uninterrupted chain bit for bit."""
     from cha1_mcmc_tpu import FitConfig, SpectralFit
 
     base = dict(mol_name="hc5n_hfs", template_run=True, nwalkers=16,
-                cat_folder=CATALOG_DIR, data_path=HC5N_DATA, seed=4,
+                cat_folder=hc5n_inputs[0], data_path=hc5n_inputs[1], seed=4,
                 checkpoint_every=10, MLE_for_Ncol=False)
     cfg_full = FitConfig(nruns=40, fit_folder=str(tmp_path / "full"), **base)
     with contextlib.redirect_stdout(io.StringIO()):
@@ -331,9 +329,8 @@ def test_adaptive_metropolis_on_gaussian():
     np.testing.assert_allclose(np.corrcoef(s.T)[0, 1], 0.8, atol=0.05)
 
 
-@requires_reference
 def test_independent_engine_cross_validation_hc5n(hc5n_problem):
-    """Engine-independent posterior cross-check on the real HC5N fit —
+    """Engine-independent posterior cross-check on the HC5N fit —
     the native stand-in for the reference's CASSIS validation
     (scripts/CASSIS/Cha1_HC5N_CASSIS.py:133 computeChi2MinUsingMCMC):
     a fixed-kernel adaptive-Metropolis engine that shares no move

@@ -1,16 +1,17 @@
-"""Pallas opacity kernel: correctness (interpret mode on CPU) and the
-batched likelihood path built on it."""
+"""Sparse channel-major gather opacity (models/opacity.py): correctness
+against a dense float64 reference, and the batched likelihood path built
+on it."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from cha1_mcmc_tpu.models.pallas_kernels import (
-    TC, TL, block_activity_mask, build_opacity_csr, opacity_pallas,
-    opacity_pallas_csr, opacity_pallas_mxu)
+from cha1_mcmc_tpu.models.opacity import (
+    build_opacity_gather, build_opacity_gather_sharded,
+    build_opacity_gather_split, heavy_scatter_onehot, opacity_gather,
+    opacity_gather_split)
 from cha1_mcmc_tpu.inference.likelihood import build_lnprob, build_lnprob_batched
-from tests.conftest import requires_reference
 
 
 def _random_problem(W=12, L=700, C=300, seed=0, center=4.10):
@@ -33,192 +34,71 @@ def _dense_reference(vel, taus, vlsr, dV, center):
                      np.where(window, np.exp(-0.5 * z * z), 0.0))
 
 
-@pytest.mark.parametrize("W,L,C", [(12, 700, 300), (8, 512, 128), (3, 50, 700)])
-def test_opacity_pallas_matches_dense(W, L, C):
-    center = 4.10
-    vel, taus, vlsr, dV = _random_problem(W, L, C)
-    expected = _dense_reference(vel, taus, vlsr, dV, center)
-    mask = block_activity_mask(vel, center, dv_max=1.5)
-    out = opacity_pallas(jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-                         jnp.asarray(vel), jnp.asarray(mask),
-                         mask_center=center, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), expected, rtol=2e-4,
-                               atol=1e-6 * max(1.0, expected.max()))
-
-
 def test_window_masking_at_extreme_vlsr():
-    """Regression: with |vlsr - center| large relative to dV, dropping the
-    ±10·dV window select is NOT covered by f32 underflow (z at the window
-    edge stays finite), so the unmasked fast path would diverge ~35% from
-    the reference window semantics. The masked kernels (the default) must
-    stay exact there, window_is_exact() must refuse the regime, and
-    build_lnprob_batched must auto-select the masked path from wide vlsr
-    bounds."""
-    from cha1_mcmc_tpu.models.pallas_kernels import window_is_exact
-
+    """Regression: with |vlsr - center| large relative to dV, the ±10·dV
+    window select is NOT covered by f32 underflow (z at the window edge
+    stays finite), so a formulation that dropped it would diverge ~35%
+    from the reference window semantics. Both gather formulations keep
+    the per-walker select and stay exact there."""
     center = 4.10
     vel, taus, vlsr, dV = _random_problem(12, 700, 300)
     # in-bounds for a wide prior box, far from the aligned velocity
     vlsr = np.full_like(vlsr, 9.9)
     dV = np.full_like(dV, 0.6)
     expected = _dense_reference(vel, taus, vlsr, dV, center)
-    mask = block_activity_mask(vel, center, dv_max=1.5)
+    # without the window the same geometry is far from the reference
+    sigma = dV[:, None, None] / 2.355
+    z = (vel[None].astype(np.float64) - vlsr[:, None, None]) / sigma
+    unwindowed = np.einsum("wl,wlc->wc", taus.astype(np.float64),
+                           np.exp(-0.5 * z * z))
+    assert np.abs(unwindowed - expected).max() > 1e-3
 
-    assert not window_is_exact(0.6, 9.9 - center)
-    # the default HC5N box (dv >= 0.4, |vlsr - center| <= 1.4) sits only
-    # ~6% above the f32 flush threshold — inside the safety margin, so it
-    # too keeps the masked kernel
-    assert not window_is_exact(0.4, 1.4)
-    assert window_is_exact(0.5, 0.5)  # comfortably inside the window
-
-    masked = opacity_pallas_mxu(
-        jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-        jnp.asarray(vel), jnp.asarray(mask), mask_center=center,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(masked), expected, rtol=2e-4,
+    table, vel_t, active = build_opacity_gather(vel, center, dv_max=1.5)
+    plain = opacity_gather(jnp.asarray(taus[:, active]), jnp.asarray(vlsr),
+                           jnp.asarray(dV), jnp.asarray(table),
+                           jnp.asarray(vel_t), mask_center=center)
+    np.testing.assert_allclose(np.asarray(plain), expected, rtol=2e-4,
                                atol=1e-6 * max(1.0, expected.max()))
-    unmasked = opacity_pallas_mxu(
-        jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-        jnp.asarray(vel), jnp.asarray(mask), mask_center=center,
-        interpret=True, unmasked=True)
-    assert np.abs(np.asarray(unmasked) - expected).max() > 1e-3  # the bug
-
-    line_table, vel_compact, tile_counts = build_opacity_csr(
-        vel, center, dv_max=1.5)
-    csr = opacity_pallas_csr(
-        jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-        jnp.asarray(line_table), jnp.asarray(vel_compact),
-        jnp.asarray(tile_counts), mask_center=center, n_channels=300,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(csr), expected, rtol=2e-4,
+    t1, v1, t2, v2, heavy, active_s = build_opacity_gather_split(
+        vel, center, dv_max=1.5, min_saving=0.0)
+    split = opacity_gather_split(
+        jnp.asarray(taus[:, active_s]), jnp.asarray(vlsr), jnp.asarray(dV),
+        jnp.asarray(t1), jnp.asarray(v1), jnp.asarray(t2), jnp.asarray(v2),
+        jnp.asarray(heavy_scatter_onehot(heavy, vel.shape[1])),
+        mask_center=center)
+    np.testing.assert_allclose(np.asarray(split), expected, rtol=2e-4,
                                atol=1e-6 * max(1.0, expected.max()))
 
-    # and in a provably-safe regime (the _random_problem box: offsets
-    # <= 0.2, dV >= 0.5 -> window_is_exact holds) the unmasked fast path
-    # IS exact, so the builder's opt-in is sound
-    vel2, taus2, vlsr2, dV2 = _random_problem(12, 700, 300)
-    assert window_is_exact(0.5, 0.2)
-    expected2 = _dense_reference(vel2, taus2, vlsr2, dV2, center)
-    unmasked2 = opacity_pallas_mxu(
-        jnp.asarray(taus2), jnp.asarray(vlsr2), jnp.asarray(dV2),
-        jnp.asarray(vel2), jnp.asarray(block_activity_mask(vel2, center, 1.5)),
-        mask_center=center, interpret=True, unmasked=True)
-    np.testing.assert_allclose(np.asarray(unmasked2), expected2, rtol=2e-4,
-                               atol=1e-6 * max(1.0, expected2.max()))
 
-
-@pytest.mark.parametrize("W,L,C", [(12, 700, 300), (3, 50, 700)])
-def test_opacity_mxu_matches_dense(W, L, C):
-    """The MXU-contraction kernel (exp2 form, window select elided via f32
-    underflow) is numerically interchangeable with the masked kernel."""
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_opacity_gather_sharded_tables_match_dense(n_shards):
+    """Per-shard gather tables (the line-sharded mesh path): summing each
+    shard's gather over its own padded active lines reproduces the dense
+    reference; padding entries are marked -1 and contribute nothing."""
     center = 4.10
-    vel, taus, vlsr, dV = _random_problem(W, L, C)
+    W, L, C = 6, 704, 300
+    vel, taus, vlsr, dV = _random_problem(W, L, C, seed=4)
     expected = _dense_reference(vel, taus, vlsr, dV, center)
-    mask = block_activity_mask(vel, center, dv_max=1.5)
-    out = opacity_pallas_mxu(
-        jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-        jnp.asarray(vel), jnp.asarray(mask), mask_center=center,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(out), expected, rtol=2e-4,
+    table, vel_t, active = build_opacity_gather_sharded(vel, center, 1.5,
+                                                        n_shards)
+    M, La = table.shape[0] // n_shards, active.size // n_shards
+    assert table.shape == vel_t.shape == (n_shards * M, C)
+    total = np.zeros((W, C))
+    for s in range(n_shards):
+        act = active[s * La:(s + 1) * La]
+        assert ((act == -1) | ((act >= s * L // n_shards)
+                               & (act < (s + 1) * L // n_shards))).all()
+        shard_taus = np.where(act >= 0, taus[:, np.maximum(act, 0)], 0.0)
+        total += np.asarray(opacity_gather(
+            jnp.asarray(shard_taus, jnp.float32), jnp.asarray(vlsr),
+            jnp.asarray(dV), jnp.asarray(table[s * M:(s + 1) * M]),
+            jnp.asarray(vel_t[s * M:(s + 1) * M]), mask_center=center))
+    np.testing.assert_allclose(total, expected, rtol=2e-4,
                                atol=1e-6 * max(1.0, expected.max()))
+    with pytest.raises(ValueError):
+        build_opacity_gather_sharded(vel, center, 1.5, 3)
 
 
-@pytest.mark.parametrize("W,L,C,tiles", [(12, 700, 300, (16, 128)),
-                                         (3, 50, 700, (8, 128))])
-def test_opacity_csr_matches_dense(W, L, C, tiles):
-    """The compacted (CSR) kernel reproduces the dense accumulation."""
-    center = 4.10
-    vel, taus, vlsr, dV = _random_problem(W, L, C)
-    expected = _dense_reference(vel, taus, vlsr, dV, center)
-    line_table, vel_compact, tile_counts = build_opacity_csr(
-        vel, center, dv_max=1.5, tl=tiles[1])
-    assert tile_counts.max() <= line_table.shape[1]
-    out = opacity_pallas_csr(
-        jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-        jnp.asarray(line_table), jnp.asarray(vel_compact),
-        jnp.asarray(tile_counts), mask_center=center, n_channels=C,
-        tiles=tiles, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), expected, rtol=2e-4,
-                               atol=1e-6 * max(1.0, expected.max()))
-
-
-@requires_reference
-def test_fused_step_kernel_bitwise_matches_run_ensemble(hc5n_problem,
-                                                        hc5n_datagrid):
-    """The fused whole-ensemble-step Pallas kernel (sampler/fused.py)
-    reproduces run_ensemble on the same PRNG stream: walker trajectories
-    bitwise-identical (the one-hot MXU gathers are exact at
-    precision=HIGHEST and proposals share the same arithmetic), lnp equal
-    to the last ulp (in-kernel chi-2 reduction order can differ), and the
-    same acceptances. Also checks the k-step blocking (k=4 here) consumes
-    the randomness identically."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior, build_lnprob
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused import make_fused_ensemble
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, lnprior)
-    run_fused = make_fused_ensemble(model, spec, grid.ints, grid.yerrs,
-                                    bounds, means, stds, interpret=True)
-
-    rng = np.random.default_rng(0)
-    pos0 = jnp.asarray(np.array([3.24e12, 7.5, 4.11, 0.78]) *
-                       (1 + 0.01 * rng.standard_normal((16, 4))), jnp.float32)
-    lnp0 = jax.vmap(lnprob)(pos0)
-    # The in-kernel lnp differs from the general path's by ~an f32 ulp
-    # (different reduction/exp formulations), so a marginal acceptance can
-    # flip on some streams; this key has none over the tested steps. The
-    # f64 test below is the stream-independent exactness gate.
-    key = jax.random.PRNGKey(0)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 24, 4)
-    cu, lu, au, (pu, lpu) = run_ensemble(lnprob, pos0, lnp0, key, nsteps=24)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lu), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(pf), np.asarray(pu))
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-
-    # 5-dim free-source-size layout (the MCMC_variable_source_size family)
-    from cha1_mcmc_tpu.inference import ParamSpec
-
-    spec5 = ParamSpec(ncomp=1, fixed_source_size=None)
-    bounds5 = dict(bounds, source_size=(30.0, 90.0))
-    means5 = np.array([46.91, 3.4e10, 8.0, 4.3, 0.7575])
-    stds5 = np.array([6.5, 0.34e10, 3.0, 0.06, 0.22])
-    lnprior5 = single_component_lnprior(spec5, bounds5, means5, stds5)
-    lnprob5 = build_lnprob(model, spec5, grid.ints, grid.yerrs, lnprior5)
-    run_fused5 = make_fused_ensemble(model, spec5, grid.ints, grid.yerrs,
-                                     bounds5, means5, stds5, interpret=True)
-    pos5 = jnp.asarray(np.array([52.0, 3.24e12, 7.5, 4.11, 0.78]) *
-                       (1 + 0.01 * rng.standard_normal((16, 5))), jnp.float32)
-    lnp5 = jax.vmap(lnprob5)(pos5)
-    cf5, *_ = run_fused5(pos5, lnp5, key, 12, 4)
-    cu5, *_ = run_ensemble(lnprob5, pos5, lnp5, key, nsteps=12)
-    np.testing.assert_array_equal(np.asarray(cf5), np.asarray(cu5))
-
-
-def test_block_mask_prunes_and_preserves():
-    center = 4.10
-    vel, taus, vlsr, dV = _random_problem(24, 1100, 260)
-    mask = block_activity_mask(vel, center, dv_max=1.5)
-    # sparsity actually engages on this geometry
-    assert 0 < mask.mean() < 1.0
-    sparse = opacity_pallas(jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-                            jnp.asarray(vel), jnp.asarray(mask),
-                            mask_center=center, interpret=True)
-    dense = opacity_pallas(jnp.asarray(taus), jnp.asarray(vlsr), jnp.asarray(dV),
-                           jnp.asarray(vel), jnp.asarray(np.ones_like(mask)),
-                           mask_center=center, interpret=True)
-    np.testing.assert_array_equal(np.asarray(sparse), np.asarray(dense))
-
-
-@requires_reference
 def test_batched_lnprob_matches_scalar_vmap(hc5n_problem, hc5n_datagrid):
     """The batched builder (jnp path) agrees with vmap of the scalar path."""
     model, spec, lnprior = (hc5n_problem["model"], hc5n_problem["spec"],
@@ -234,10 +114,9 @@ def test_batched_lnprob_matches_scalar_vmap(hc5n_problem, hc5n_datagrid):
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=2e-3)
 
 
-@requires_reference
 def test_batched_lnprob_pallas_path(hc5n_problem, hc5n_datagrid):
-    """Pallas-backed batched lnprob (interpret mode) agrees with the jnp path
-    and propagates -inf for out-of-bounds walkers."""
+    """The sparse-gather batched lnprob (use_pallas=True) agrees with the
+    dense jnp path and propagates -inf for out-of-bounds walkers."""
     model, spec, lnprior = (hc5n_problem["model"], hc5n_problem["spec"],
                             hc5n_problem["lnprior"])
     grid = hc5n_datagrid
@@ -249,16 +128,17 @@ def test_batched_lnprob_pallas_path(hc5n_problem, hc5n_datagrid):
     a = np.asarray(jnp_path(jnp.asarray(thetas, jnp.float32)))
     assert a[3] == -np.inf
     keep = np.isfinite(a)
-    for kernel in ("csr", "block"):
-        pallas_path = build_lnprob_batched(
-            model, spec, grid.ints, grid.yerrs, lnprior,
-            use_pallas=True, dv_max=1.5, interpret=True, pallas_kernel=kernel)
-        b = np.asarray(pallas_path(jnp.asarray(thetas, jnp.float32)))
-        assert b[3] == -np.inf
-        np.testing.assert_allclose(a[keep], b[keep], rtol=1e-5, atol=2e-3)
+    gather_path = build_lnprob_batched(
+        model, spec, grid.ints, grid.yerrs, lnprior, use_pallas=True,
+        dv_max=1.5)
+    b = np.asarray(gather_path(jnp.asarray(thetas, jnp.float32)))
+    assert b[3] == -np.inf
+    np.testing.assert_allclose(a[keep], b[keep], rtol=1e-5, atol=2e-3)
+    with pytest.raises(ValueError):
+        build_lnprob_batched(model, spec, grid.ints, grid.yerrs, lnprior,
+                             use_pallas=True)
 
 
-@requires_reference
 def test_sampler_with_batched_lnprob(hc5n_problem, hc5n_datagrid):
     from cha1_mcmc_tpu.sampler import run_ensemble
 
@@ -281,9 +161,6 @@ def test_sampler_with_batched_lnprob(hc5n_problem, hc5n_datagrid):
 def test_opacity_gather_matches_dense(W, L, C):
     """Channel-major gather path (pure jnp) vs the dense reference,
     including the active-line subset bookkeeping."""
-    from cha1_mcmc_tpu.models.pallas_kernels import (build_opacity_gather,
-                                                     opacity_gather)
-
     center = 4.10
     vel, taus, vlsr, dV = _random_problem(W, L, C)
     expected = _dense_reference(vel, taus, vlsr, dV, center)
@@ -300,9 +177,6 @@ def test_opacity_gather_window_semantics():
     """The per-walker window select stays exact: a line just outside
     10*dV_w for one walker but inside 10*dv_max must not contribute for
     that walker (same regression family as the unmasked-kernel test)."""
-    from cha1_mcmc_tpu.models.pallas_kernels import (build_opacity_gather,
-                                                     opacity_gather)
-
     center = 4.10
     vel, taus, vlsr, dV = _random_problem(6, 120, 80, seed=3)
     dV = np.full_like(dV, 0.5)
@@ -316,446 +190,10 @@ def test_opacity_gather_window_semantics():
                                atol=1e-7)
 
 
-@requires_reference
-def test_batched_lnprob_gather_matches_csr(hc5n_problem, hc5n_datagrid):
-    """build_lnprob_batched(pallas_kernel='gather') == 'csr' (interpret) ==
-    the plain jnp path on the flagship problem."""
-    from cha1_mcmc_tpu.inference.likelihood import build_lnprob_batched
-
-    model, spec, lnprior = (hc5n_problem["model"], hc5n_problem["spec"],
-                            hc5n_problem["lnprior"])
-    ints, yerrs = hc5n_datagrid.ints, hc5n_datagrid.yerrs
-    rng = np.random.default_rng(5)
-    thetas = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.02 * rng.standard_normal((10, 4)))
-    base = build_lnprob_batched(model, spec, ints, yerrs, lnprior)
-    gather = build_lnprob_batched(model, spec, ints, yerrs, lnprior,
-                                  use_pallas=True, dv_max=1.5,
-                                  pallas_kernel="gather")
-    csr = build_lnprob_batched(model, spec, ints, yerrs, lnprior,
-                               use_pallas=True, dv_max=1.5,
-                               pallas_kernel="csr", interpret=True)
-    a = np.asarray(base(thetas))
-    b = np.asarray(gather(thetas))
-    c = np.asarray(csr(thetas))
-    keep = np.isfinite(a)
-    assert keep.any()
-    np.testing.assert_allclose(a[keep], b[keep], rtol=1e-5, atol=2e-3)
-    np.testing.assert_allclose(b[keep], c[keep], rtol=1e-5, atol=2e-3)
-    np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
-    np.testing.assert_array_equal(np.isfinite(a), np.isfinite(c))
-
-
-@requires_reference
-def test_fused_step_kernel_f64_exact(hc5n_problem, hc5n_datagrid,
-                                     hc5n_catalog):
-    """In the float64 verification mode the fused kernel matches the
-    general sampler *exactly* — trajectories AND lnp bitwise — because
-    the kernel's scalar constants and one-hot selector matmuls follow the
-    walkers' dtype (regression: hardcoded f32 ss/Tbg rounded Tbg to
-    2.70000004768, perturbing lnp at ~1e-8)."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior, build_lnprob
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused import make_fused_ensemble
-
-    from cha1_mcmc_tpu.models.forward import SpectralModel
-
-    with jax.enable_x64():
-        spec = hc5n_problem["spec"]
-        grid = hc5n_datagrid
-        # rebuild the model inside the x64 scope so its static arrays are
-        # f64 (the session fixture's model is f32)
-        model = SpectralModel.build(
-            hc5n_catalog, grid.covered_trans, grid.freqs,
-            ll=18000, ul=25000, dish_size=70, vel_offset=4.10,
-            mask_center=4.10, dtype=jnp.float64)
-        bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-                  "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-        means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-        stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-        lnprior = single_component_lnprior(spec, bounds, means, stds)
-        lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, lnprior)
-        run_fused = make_fused_ensemble(model, spec, grid.ints, grid.yerrs,
-                                        bounds, means, stds, interpret=True)
-        rng = np.random.default_rng(2)
-        pos0 = jnp.asarray(np.array([3.24e12, 7.5, 4.11, 0.78]) *
-                           (1 + 0.01 * rng.standard_normal((16, 4))),
-                           jnp.float64)
-        lnp0 = jax.vmap(lnprob)(pos0)
-        key = jax.random.PRNGKey(9)
-        cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 12, 4)
-        cu, lu, au, (pu, lpu) = run_ensemble(lnprob, pos0, lnp0, key,
-                                             nsteps=12)
-        assert np.asarray(cf).dtype == np.float64
-        np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-        # lnp: in-kernel chi-2 reduction order differs, so agreement is
-        # to f64 round-off, not bitwise (trajectories above ARE bitwise)
-        np.testing.assert_allclose(np.asarray(lf), np.asarray(lu),
-                                   rtol=1e-11)
-
-
-@requires_reference
-def test_fused_multi_kernel_bitwise_matches_general(hc9n_problem):
-    """The fused multi-component whole-ensemble-step kernel
-    (sampler/fused_multi.py) reproduces the general batched sampler on
-    the same PRNG stream for the 14-dim 4-component GOTHAM fit
-    (reference scripts/MCMC/TMC1_four_component.py): trajectories
-    bitwise-identical, lnp to f32 round-off, same acceptances."""
-    from cha1_mcmc_tpu.inference import (build_lnprob_batched,
-                                         ordered_velocity_lnprior)
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused_multi import (fused_multi_supported,
-                                                   make_fused_ensemble_multi)
-
-    model, spec, grid = (hc9n_problem["model"], hc9n_problem["spec"],
-                         hc9n_problem["grid"])
-    means, stds = hc9n_problem["means"], hc9n_problem["stds"]
-    dv_bound = hc9n_problem["dv_bound"]
-    assert fused_multi_supported(model, spec, dv_bound, nwalkers=32)
-    lnprior = ordered_velocity_lnprior(spec, means, stds, dv_max=dv_bound)
-    lnprob_b = build_lnprob_batched(model, spec, grid.ints, grid.yerrs,
-                                    lnprior, use_pallas=True,
-                                    pallas_kernel="gather", dv_max=dv_bound)
-    run_fused = make_fused_ensemble_multi(model, spec, grid.ints, grid.yerrs,
-                                          means, stds, dv_max=dv_bound,
-                                          interpret=True)
-    rng = np.random.default_rng(0)
-    W = 32
-    pos0 = jnp.asarray(means + hc9n_problem["perturbation"]
-                       * rng.standard_normal((W, spec.ndim)), jnp.float32)
-    lnp0 = lnprob_b(pos0)
-    key = jax.random.PRNGKey(3)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 24, 4)
-    cu, lu, au, (pu, lpu) = run_ensemble(lnprob_b, pos0, lnp0, key,
-                                         nsteps=24, batched=True)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lu), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-    np.testing.assert_array_equal(np.asarray(pf), np.asarray(pu))
-    # the k-step blocking must consume the randomness identically
-    cf8, *_ = run_fused(pos0, lnp0, key, 24, 8)
-    np.testing.assert_array_equal(np.asarray(cf8), np.asarray(cf))
-
-
-@requires_reference
-def test_fused_multi_kernel_one_component(hc9n_problem):
-    """K=1 ordered family (reference TMC1_one_component.py): the multi
-    kernel degenerates to a 5-dim single-component fit and still matches
-    the general sampler bitwise."""
-    from cha1_mcmc_tpu.inference import (ParamSpec, build_lnprob_batched,
-                                         ordered_velocity_lnprior)
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused_multi import make_fused_ensemble_multi
-
-    model, grid = hc9n_problem["model"], hc9n_problem["grid"]
-    spec1 = ParamSpec(ncomp=1)
-    means = np.array([37.0, 2.47e12, 6.7, 5.624, 0.117])
-    stds = np.array([2.5, 0.30e12, 0.1, 0.0015, 0.002])
-    dv_bound = hc9n_problem["dv_bound"]
-    lnprior = ordered_velocity_lnprior(spec1, means, stds, dv_max=dv_bound)
-    lnprob_b = build_lnprob_batched(model, spec1, grid.ints, grid.yerrs,
-                                    lnprior, use_pallas=True,
-                                    pallas_kernel="gather", dv_max=dv_bound)
-    run_fused = make_fused_ensemble_multi(model, spec1, grid.ints,
-                                          grid.yerrs, means, stds,
-                                          dv_max=dv_bound, interpret=True)
-    rng = np.random.default_rng(1)
-    pos0 = jnp.asarray(
-        means + np.array([1e-1, 1e10, 1e-3, 1e-3, 1e-3])
-        * rng.standard_normal((16, 5)), jnp.float32)
-    lnp0 = lnprob_b(pos0)
-    key = jax.random.PRNGKey(5)
-    cf, lf, af, _ = run_fused(pos0, lnp0, key, 12, 4)
-    cu, lu, au, _ = run_ensemble(lnprob_b, pos0, lnp0, key, nsteps=12,
-                                 batched=True)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-
-
-@requires_reference
-def test_fused_step_kernel_state_sum_q():
-    """The single-component fused kernel supports state-sum Q(T) models
-    (reference functions.py:263-325 fallback — e.g. hc2nc.cat, whose
-    dispatch pattern 'hc2nc_hfs' misses the shipped filename): chains
-    bitwise-equal to the general sampler on a fallback-Q species."""
-    from cha1_mcmc_tpu.catalogs import load_catalog
-    from cha1_mcmc_tpu.models.forward import SpectralModel
-    from cha1_mcmc_tpu.inference import (ParamSpec, build_lnprob,
-                                         single_component_lnprior)
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused import make_fused_ensemble
-
-    cat = load_catalog("/root/reference/catalog/hc2nc.cat")
-    lo, hi = float(cat.frequency.min()), float(cat.frequency.max())
-    ll, ul = lo - 1.0, hi + 1.0
-    grid_freq = np.linspace(lo, hi, 512)
-    i, i2 = cat.trim_indices(ll, ul)
-    covered = np.arange(i2 - i)
-    center = 5.8
-    model = SpectralModel.build(cat, covered, grid_freq, ll=ll, ul=ul,
-                                dish_size=100.0, vel_offset=center,
-                                mask_center=center)
-    assert model.q_model.kind == "states"
-    spec = ParamSpec(ncomp=1, fixed_source_size=52.0)
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (4.0, 7.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, center, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    rng = np.random.default_rng(2)
-    ints = (rng.standard_normal(512) * 1e-3).astype(np.float32)
-    yerrs = np.full(512, 1e-3, np.float32)
-    lnprob = build_lnprob(model, spec, ints, yerrs, lnprior)
-    run_fused = make_fused_ensemble(model, spec, ints, yerrs, bounds,
-                                    means, stds, interpret=True)
-    pos0 = jnp.asarray(np.array([3.24e12, 7.5, center, 0.78])
-                       * (1 + 0.01 * rng.standard_normal((16, 4))),
-                       jnp.float32)
-    lnp0 = jax.vmap(lnprob)(pos0)
-    key = jax.random.PRNGKey(0)  # flip-free stream (see bitwise test note)
-    cf, lf, af, _ = run_fused(pos0, lnp0, key, 12, 4)
-    cu, lu, au, _ = run_ensemble(lnprob, pos0, lnp0, key, nsteps=12)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lu), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-
-
-def test_window_extents_and_velc_cover_windows():
-    """The kernel's static window structure (window_extents + _chunk_plan
-    + _build_velc) covers every in-window channel: each line's velc row
-    holds exactly vel_grid over its span, every true-window channel lies
-    inside the line's chunk-width slab, and non-contiguous windows are
-    rejected."""
-    from cha1_mcmc_tpu.constants import VELOCITY_WINDOW_DV
-    from cha1_mcmc_tpu.sampler.fused_multi import (_build_velc, _chunk_plan,
-                                                   window_extents)
-
-    center, dv_max = 4.10, 1.5
-    vel, _, _, _ = _random_problem(W=4, L=60, C=900)
-    inside = np.abs(vel - center) < VELOCITY_WINDOW_DV * dv_max
-    # drop non-contiguous lines (random grids can produce them)
-    keep = []
-    for l in range(vel.shape[0]):
-        idx = np.flatnonzero(inside[l])
-        if idx.size and np.all(np.diff(idx) == 1):
-            keep.append(l)
-    vel = vel[keep]
-    active, first, last, C = window_extents(vel, center, dv_max)
-    inside = np.abs(vel - center) < VELOCITY_WINDOW_DV * dv_max
-    np.testing.assert_array_equal(active, np.flatnonzero(inside.any(axis=1)))
-    plan, _, line_spans = _chunk_plan(first, last, C, 16)
-    Wc = max(p[2] for p in plan)
-    velc = _build_velc(vel, active, line_spans, Wc)
-    wc_of = {}
-    for c0, g, wc, grps in plan:
-        for j in range(c0, c0 + g):
-            wc_of[j] = wc
-    for j, l in enumerate(active):
-        idx = np.flatnonzero(inside[l])
-        s = line_spans[j]
-        # the chunk-width slab [s, s+wc) covers the true window
-        assert s <= idx.min() and idx.max() < s + wc_of[j]
-        # the velc row is vel_grid over the span (in-grid columns)
-        w_in = min(Wc, vel.shape[1] - s)
-        np.testing.assert_array_equal(velc[j, :w_in, 0], vel[l, s:s + w_in])
-    # a deliberately split window is rejected
-    vel_bad = np.full((1, 200), 1e6, np.float32)
-    vel_bad[0, 10] = center
-    vel_bad[0, 100] = center
-    with pytest.raises(ValueError):
-        window_extents(vel_bad, center, dv_max)
-
-
-def test_chunk_plan_invariants():
-    """_chunk_plan's static execution plan partitions the active lines
-    exactly once, keeps every group's true window inside its chunk-width
-    span, and groups consecutive same-start lines (the hfs-triplet
-    single-scatter exploit)."""
-    from cha1_mcmc_tpu.constants import VELOCITY_WINDOW_DV
-    from cha1_mcmc_tpu.sampler.fused_multi import (_chunk_plan,
-                                                   window_extents)
-
-    center, dv_max = 4.10, 1.5
-    vel, _, _, _ = _random_problem(W=4, L=60, C=900)
-    inside = np.abs(vel - center) < VELOCITY_WINDOW_DV * dv_max
-    keep = [l for l in range(vel.shape[0])
-            if (idx := np.flatnonzero(inside[l])).size
-            and np.all(np.diff(idx) == 1)]
-    vel = vel[keep]
-    active, first, last, C = window_extents(vel, center, dv_max)
-    for line_chunk in (1, 4, 16, 64):
-        plan, max_chunk, line_spans = _chunk_plan(first, last, C,
-                                                  line_chunk)
-        seen = []
-        for c0, g, wc, grps in plan:
-            assert wc % 8 == 0 or wc == C
-            assert g <= max_chunk
-            assert sum(gs for _, gs, _ in grps) == g
-            for j0, gsize, s in grps:
-                lines = range(c0 + j0, c0 + j0 + gsize)
-                seen.extend(lines)
-                assert 0 <= s and s + wc <= C + wc  # velc rows are padded
-                for j in lines:
-                    # the [s, s+wc) slab covers line j's true window
-                    assert s <= first[j] and last[j] < s + wc
-                    assert line_spans[j] == s
-                # grouped lines share a window start (single scatter is
-                # bitwise-safe only when the group is one hfs cluster)
-                assert len({first[j] for j in lines}) == 1
-        assert seen == list(range(active.size))
-
-
-@requires_reference
-def test_fused_kernels_survive_out_of_bounds_proposals(hc5n_problem,
-                                                       hc5n_datagrid):
-    """Regression (r3): a rejected out-of-bounds proposal has lnp = -inf;
-    if that value reaches the one-hot scatter matmul, 0 * (-inf) = NaN
-    poisons the whole lnp column and freezes the chain (observed on the
-    v5e as acceptance collapsing 0.62 -> 0.08). Tight prior bounds force
-    out-of-bounds proposals constantly; the fused kernels must still
-    track the general sampler, with finite recorded lnp."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior, build_lnprob
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused import make_fused_ensemble
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    # vlsr/dV boxes barely wider than the walker ball: stretch proposals
-    # step outside every few moves
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (7.0, 8.0),
-              "vlsr": (4.05, 4.17), "dV": (0.75, 0.81)}
-    means = np.array([3.4e10, 7.5, 4.11, 0.78])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, lnprior)
-    run_fused = make_fused_ensemble(model, spec, grid.ints, grid.yerrs,
-                                    bounds, means, stds, interpret=True)
-    rng = np.random.default_rng(4)
-    pos0 = jnp.asarray(
-        np.array([3.24e12, 7.5, 4.11, 0.78])
-        * (1 + 0.003 * rng.standard_normal((16, 4))), jnp.float32)
-    lnp0 = jax.vmap(lnprob)(pos0)
-    key = jax.random.PRNGKey(1)
-    cf, lf, af, _ = run_fused(pos0, lnp0, key, 16, 4)
-    cu, lu, au, _ = run_ensemble(lnprob, pos0, lnp0, key, nsteps=16)
-    assert np.isfinite(np.asarray(lf)).all()
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-    # rejections actually happened (the point of the scenario)
-    assert np.asarray(af).sum() < 16 * 16
-
-
-@requires_reference
-def test_fused_never_accepting_walker_reports_minus_inf(hc5n_problem,
-                                                        hc5n_datagrid):
-    """Contract regression: a walker that STARTS outside the prior
-    (lnp0 = -inf) and never accepts must be recorded as -inf in lnps,
-    exactly as the general sampler records it — not as the finfo.min
-    the kernels clamp to internally to avoid 0 * (-inf) = NaN in the
-    one-hot contractions."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior, build_lnprob
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused import make_fused_ensemble
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (7.0, 8.0),
-              "vlsr": (4.05, 4.17), "dV": (0.75, 0.81)}
-    means = np.array([3.4e10, 7.5, 4.11, 0.78])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, lnprior)
-    run_fused = make_fused_ensemble(model, spec, grid.ints, grid.yerrs,
-                                    bounds, means, stds, interpret=True)
-    rng = np.random.default_rng(4)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.003 * rng.standard_normal((16, 4)))
-    pos0[3, 2] = 9.0       # vlsr far outside the box: lnp0 = -inf and
-    pos0[3, 3] = 0.05      # every proposal *from* it stays rejected
-    pos0 = jnp.asarray(pos0, jnp.float32)
-    lnp0 = jax.vmap(lnprob)(pos0)
-    assert not np.isfinite(np.asarray(lnp0)[3])
-    key = jax.random.PRNGKey(1)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 8, 4)
-    cu, lu, au, (pu, lpu) = run_ensemble(lnprob, pos0, lnp0, key, nsteps=8)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    # the stuck walker reads -inf (not finfo.min) everywhere it appears
-    lf, lu = np.asarray(lf), np.asarray(lu)
-    stuck = ~np.isfinite(lu)
-    assert stuck.any()
-    np.testing.assert_array_equal(lf[stuck], lu[stuck])
-    # final state: -inf entries exact; finite entries agree to the f32
-    # ulps the in-kernel reduction order is documented to differ by
-    lpf, lpu = np.asarray(lpf), np.asarray(lpu)
-    np.testing.assert_array_equal(np.isfinite(lpf), np.isfinite(lpu))
-    np.testing.assert_allclose(lpf[np.isfinite(lpu)], lpu[np.isfinite(lpu)],
-                               rtol=1e-5)
-    assert not np.isfinite(lpf[3])
-
-
-@requires_reference
-def test_fused_multi_checkpoint_resume_exact(hc9n_problem, tmp_path):
-    """Checkpoint blocks + .state.npz exact resume through the
-    FusedEnsembleSampler running the multi-component kernel: an
-    interrupted run continues the random stream bit for bit."""
-    from cha1_mcmc_tpu.inference import (build_lnprob_batched,
-                                         ordered_velocity_lnprior)
-    from cha1_mcmc_tpu.sampler import FusedEnsembleSampler
-    from cha1_mcmc_tpu.sampler.fused_multi import make_fused_ensemble_multi
-
-    model, spec, grid = (hc9n_problem["model"], hc9n_problem["spec"],
-                         hc9n_problem["grid"])
-    means, stds = hc9n_problem["means"], hc9n_problem["stds"]
-    dv_bound = hc9n_problem["dv_bound"]
-    lnprior = ordered_velocity_lnprior(spec, means, stds, dv_max=dv_bound)
-    lnprob_b = build_lnprob_batched(model, spec, grid.ints, grid.yerrs,
-                                    lnprior, use_pallas=True,
-                                    pallas_kernel="gather", dv_max=dv_bound)
-
-    def sampler():
-        run_fn = make_fused_ensemble_multi(
-            model, spec, grid.ints, grid.yerrs, means, stds,
-            dv_max=dv_bound, interpret=True)
-        return FusedEnsembleSampler(
-            lnprob_fn=lnprob_b, nwalkers=16, ndim=spec.ndim, batched=True,
-            dtype=jnp.float32, run_fn=run_fn)
-
-    rng = np.random.default_rng(0)
-    pos0 = (means + hc9n_problem["perturbation"]
-            * rng.standard_normal((16, spec.ndim)))
-    key = jax.random.PRNGKey(11)
-
-    full = sampler()
-    full.run_mcmc(pos0, 16, key, checkpoint_every=8,
-                  chain_file=str(tmp_path / "full.npy"))
-
-    part = sampler()
-    part.run_mcmc(pos0, 8, key, checkpoint_every=8,
-                  chain_file=str(tmp_path / "split.npy"))
-    resumed = sampler()
-    prev = np.load(tmp_path / "split.npy")
-    pos = resumed.preload(prev)
-    state = resumed.load_state(str(tmp_path / "split.npy"))
-    assert state is not None
-    pos, lnp0, key2 = state
-    resumed.run_mcmc(pos, 8, key2, lnp0=lnp0, checkpoint_every=8,
-                     chain_file=str(tmp_path / "split.npy"))
-    np.testing.assert_array_equal(resumed.chain, full.chain)
-    assert resumed.accepted == full.accepted
-
-
 @pytest.mark.parametrize("W,L,C", [(12, 700, 300), (8, 512, 128)])
 def test_opacity_gather_split_matches_dense(W, L, C):
     """Two-class split gather vs the dense reference and vs the plain
     gather (light channels bitwise, heavy channels f32-reassociated)."""
-    from cha1_mcmc_tpu.models.pallas_kernels import (
-        build_opacity_gather, build_opacity_gather_split,
-        heavy_scatter_onehot, opacity_gather, opacity_gather_split)
-
     center = 4.10
     vel, taus, vlsr, dV = _random_problem(W, L, C)
     expected = _dense_reference(vel, taus, vlsr, dV, center)
@@ -789,15 +227,11 @@ def test_opacity_gather_split_matches_dense(W, L, C):
 def test_opacity_gather_split_declines_flat_counts():
     """Uniform per-channel line counts -> no saving -> builder returns
     None and build_lnprob_batched stays on the rectangular table."""
-    from cha1_mcmc_tpu.models.pallas_kernels import \
-        build_opacity_gather_split
-
     # every channel covered by exactly the same number of lines
     vel = np.full((4, 64), 4.10, np.float32)
     assert build_opacity_gather_split(vel, 4.10, dv_max=1.5) is None
 
 
-@requires_reference
 def test_batched_lnprob_gather_split_matches_plain(hc5n_problem,
                                                    hc5n_datagrid):
     """build_lnprob_batched auto-upgrades the gather path to the split
@@ -805,8 +239,6 @@ def test_batched_lnprob_gather_split_matches_plain(hc5n_problem,
     formulations must agree to f32 reassociation tolerance."""
     from cha1_mcmc_tpu.inference.likelihood import (batched_model_gather,
                                                     batched_model_gather_split)
-    from cha1_mcmc_tpu.models.pallas_kernels import (
-        build_opacity_gather, build_opacity_gather_split)
 
     model, spec, lnprior = (hc5n_problem["model"], hc5n_problem["spec"],
                             hc5n_problem["lnprior"])
@@ -817,7 +249,6 @@ def test_batched_lnprob_gather_split_matches_plain(hc5n_problem,
     if split is None:
         pytest.skip("HC5N window structure has no split advantage")
     t1, v1, t2, v2, heavy, active = split
-    from cha1_mcmc_tpu.models.pallas_kernels import heavy_scatter_onehot
     onehot = heavy_scatter_onehot(heavy, model.n_channels)
     lines = tuple(jnp.asarray(np.asarray(arr)[active])
                   for arr in (model.line_freq, model.line_elower,
@@ -842,468 +273,3 @@ def test_batched_lnprob_gather_split_matches_plain(hc5n_problem,
         jnp.asarray(lt), jnp.asarray(vt, model.dtype))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
                                atol=1e-8)
-
-
-@requires_reference
-@pytest.mark.parametrize("min_saving,walk", [
-    (1e9, None), (0.0, None), (0.0, "fori"), (0.0, "unroll"),
-    (0.0, "mixed"), (0.0, "group")],
-    ids=["rect_table", "split_overflow", "split_blocked_fori",
-         "split_blocked_unroll", "split_blocked_mixed",
-         "split_blocked_group"])
-def test_fused_gather_kernel_matches_run_ensemble(hc5n_problem,
-                                                  hc5n_datagrid, min_saving,
-                                                  walk, monkeypatch):
-    """The dense-catalog fused whole-step kernel (sampler/fused_gather.py)
-    reproduces run_ensemble over the user-facing batched gather lnprob on
-    the same PRNG stream: trajectories bitwise-identical on the tested
-    stream, lnp to f32 ulps (exp2 vs exp Gaussian formulation), the -inf
-    contract for never-accepting walkers, in both table modes
-    (rectangular table via min_saving=inf; two-class split with the
-    heavy-first in-place overflow add via min_saving=0) — and with a
-    plan inflated to multi-block channel walks in ALL walk modes:
-    lax.fori_loop ("fori"), the statically unrolled accumulator
-    ("unroll", the planner-preferred mode), the mixed case ("mixed":
-    overflow region unrolled, rest region fori — the downgrade shape
-    where one region's seam charge blows the budget), and the
-    group-unrolled long walk ("group": unroll_br=True with the block
-    count over _UNROLL_BLOCKS, so the walk runs as a fori over
-    statically unrolled groups plus an unrolled remainder — the
-    dense_full_fit rest-region shape). The extra blocks are pure
-    padding, which must contribute exactly 0, so trajectories stay
-    bitwise; test_fused_gather_blocked_dense_grid covers block walks
-    over real channels."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused_gather import (
-        build_dense_tables, fused_gather_supported,
-        make_fused_ensemble_gather, plan_fused_gather)
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob_b = build_lnprob_batched(
-        model, spec, grid.ints, grid.yerrs, lnprior, use_pallas=True,
-        dv_max=1.5, pallas_kernel="gather", interpret=True)
-    assert fused_gather_supported(model, spec, dv_max=1.5, nwalkers=16)
-    tables = build_dense_tables(model, 1.5, min_saving=min_saving)
-    assert tables["has_overflow"] == (min_saving == 0.0)
-    plan = plan_fused_gather(model, spec, 1.5, nwalkers=16,
-                             min_saving=min_saving)
-    if walk == "mixed":  # overflow unrolled, rest fori (budget downgrade)
-        plan = dict(plan, n_bo=2, n_br=3, cblock=128,
-                    cb0p=256, Cp=640, unroll_bo=True, unroll_br=False)
-    elif walk == "group":  # rest walks fori over 2-block unrolled groups
-        import cha1_mcmc_tpu.sampler.fused_gather as fg  # + 1 remainder
-        monkeypatch.setattr(fg, "_UNROLL_BLOCKS", 2)
-        plan = dict(plan, n_bo=2, n_br=5, cblock=128,
-                    cb0p=256, Cp=896, unroll_bo=True, unroll_br=True)
-    elif walk is not None:  # inflate both regions to multi-block walks
-        plan = dict(plan, n_bo=2, n_br=2, cblock=128, cb0p=256, Cp=512,
-                    unroll_bo=walk == "unroll", unroll_br=walk == "unroll")
-    run_fused = make_fused_ensemble_gather(
-        model, spec, grid.ints, grid.yerrs, bounds, means, stds,
-        dv_max=1.5, nwalkers=16, min_saving=min_saving, plan=plan,
-        interpret=True)
-
-    rng = np.random.default_rng(0)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((16, 4)))
-    pos0[3, 2] = 9.0   # vlsr outside the box: lnp0 = -inf, never accepts
-    pos0[3, 3] = 0.05
-    pos0 = jnp.asarray(pos0, jnp.float32)
-    lnp0 = lnprob_b(pos0)
-    assert not np.isfinite(np.asarray(lnp0)[3])
-    key = jax.random.PRNGKey(0)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 24, 4)
-    cu, lu, au, (pu, lpu) = run_ensemble(lnprob_b, pos0, lnp0, key,
-                                         nsteps=24, batched=True)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    lf, lu = np.asarray(lf), np.asarray(lu)
-    np.testing.assert_array_equal(np.isfinite(lf), np.isfinite(lu))
-    np.testing.assert_allclose(lf[np.isfinite(lu)], lu[np.isfinite(lu)],
-                               rtol=1e-5)
-    assert not np.isfinite(lf[:, 3]).any()   # stuck walker stays -inf
-    np.testing.assert_array_equal(np.asarray(pf), np.asarray(pu))
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-
-
-def test_fused_gather_support_bounds():
-    """fused_gather_supported refuses multi-component layouts and
-    oversized tables; _pick_chunks shrinks walker chunks and channel
-    blocks before giving up."""
-    from cha1_mcmc_tpu.inference import ParamSpec
-    from cha1_mcmc_tpu.sampler.fused_gather import _pick_chunks
-
-    def tables(M1, C, M2=1, cb0=0, has_overflow=False):
-        return {"vel1": np.zeros((M1, C), np.float32),
-                "vel2": np.zeros((M2, max(cb0, 1)), np.float32),
-                "has_overflow": has_overflow, "cb0": cb0}
-
-    # plenty of budget: the measured-fastest chunking (the whole
-    # half-ensemble in ONE walker chunk, cblock=128, unrolled walks —
-    # the on-chip ablation's ranking, see _pick_chunks)
-    assert _pick_chunks(tables(2, 512), 512, 0, 128,
-                        48 << 20) == (64, 128, True, True)
-    # tight budget: downgrades walks to fori / shrinks the walker chunk
-    # rather than refusing
-    picked = _pick_chunks(tables(48, 2048, 16, 256, True), 2048, 20_000,
-                          128, 8 << 20)
-    assert picked is not None
-    w, cblock, ubo, ubr = picked
-    assert cblock == 128 and (w < 32 or not (ubo and ubr))
-    # channel blocking rescues a grid far too wide for whole-width
-    # temporaries (the dense_full_fit shape: C=10850, 1554 heavy
-    # channels); the long rest region keeps the unrolled walk (as a
-    # fori over _UNROLL_BLOCKS-block groups) while the overflow region
-    # downgrades to plain fori — both-unrolled would blow the budget
-    picked = _pick_chunks(tables(6, 10850, 21, 1664, True), 10850, 16_488,
-                          128, 12 << 20)
-    assert picked == (32, 128, False, True)
-    # probe tier: candidates modeled past the analytic line are admitted
-    # only when the prober (stand-in for the deviceless Mosaic compile,
-    # fused_gather._make_prober) confirms them, consulted in preference
-    # order — heavy-unroll walks across descending walker chunks first
-    calls = []
-
-    def fake_prober(tb, C, ns, w, cb, ubo, ubr):
-        calls.append((w, ubo, ubr))
-        return (w, ubo, ubr) == (32, True, True), False
-
-    picked = _pick_chunks(tables(6, 10850, 21, 1664, True), 10850, 16_488,
-                          128, 12 << 20, fake_prober)
-    assert picked == (32, 128, True, True)
-    assert calls[0][0] == 64 and calls[-1] == (32, True, True)
-    # probe budget: uncached probes stop after max_probes, falling back
-    # to the analytic line for the remaining candidates
-    calls.clear()
-    picked = _pick_chunks(tables(6, 10850, 21, 1664, True), 10850, 16_488,
-                          128, 12 << 20,
-                          lambda *a: (False, False), max_probes=2)
-    assert picked == (32, 128, False, True)  # the analytic-line plan
-    # impossible budget: refuses
-    assert _pick_chunks(tables(400, 2048, 64, 1024, True), 2048, 0, 128,
-                        1 << 20) is None
-
-    class _Spec:
-        ncomp = 2
-    from cha1_mcmc_tpu.sampler.fused_gather import fused_gather_supported
-    assert not fused_gather_supported(None, _Spec(), 1.5)
-
-
-@requires_reference
-def test_fused_gather_kernel_f64_exact(hc5n_datagrid, hc5n_catalog):
-    """Float64 verification mode for the dense fused kernel: trajectories
-    bitwise vs the general sampler over the batched gather lnprob, lnp to
-    f64 round-off (the same gate test_fused_step_kernel_f64_exact applies
-    to the dense-grid kernel)."""
-    from cha1_mcmc_tpu.inference import ParamSpec, single_component_lnprior
-    from cha1_mcmc_tpu.models.forward import SpectralModel
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused_gather import make_fused_ensemble_gather
-
-    with jax.enable_x64():
-        spec = ParamSpec(ncomp=1, fixed_source_size=52.0)
-        grid = hc5n_datagrid
-        model = SpectralModel.build(
-            hc5n_catalog, grid.covered_trans, grid.freqs,
-            ll=18000, ul=25000, dish_size=70, vel_offset=4.10,
-            mask_center=4.10, dtype=jnp.float64)
-        bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-                  "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-        means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-        stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-        lnprior = single_component_lnprior(spec, bounds, means, stds)
-        lnprob_b = build_lnprob_batched(
-            model, spec, grid.ints, grid.yerrs, lnprior, use_pallas=True,
-            dv_max=1.5, pallas_kernel="gather", interpret=True)
-        run_fused = make_fused_ensemble_gather(
-            model, spec, grid.ints, grid.yerrs, bounds, means, stds,
-            dv_max=1.5, nwalkers=16, interpret=True)
-        rng = np.random.default_rng(2)
-        pos0 = jnp.asarray(np.array([3.24e12, 7.5, 4.11, 0.78]) *
-                           (1 + 0.01 * rng.standard_normal((16, 4))),
-                           jnp.float64)
-        lnp0 = lnprob_b(pos0)
-        key = jax.random.PRNGKey(9)
-        cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 12, 4)
-        cu, lu, au, (pu, lpu) = run_ensemble(lnprob_b, pos0, lnp0, key,
-                                             nsteps=12, batched=True)
-        assert np.asarray(cf).dtype == np.float64
-        np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-        np.testing.assert_allclose(np.asarray(lf), np.asarray(lu),
-                                   rtol=1e-11)
-
-
-@requires_reference
-def test_fused_gather_checkpoint_resume_exact(hc5n_problem, hc5n_datagrid,
-                                              tmp_path):
-    """Checkpoint blocks + .state.npz exact resume through the
-    FusedEnsembleSampler running the dense gather kernel: an interrupted
-    run continues the random stream bit for bit (the same contract
-    test_fused_multi_checkpoint_resume_exact gates for the
-    multi-component kernel)."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior
-    from cha1_mcmc_tpu.sampler import FusedEnsembleSampler
-    from cha1_mcmc_tpu.sampler.fused_gather import make_fused_ensemble_gather
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob_b = build_lnprob_batched(
-        model, spec, grid.ints, grid.yerrs, lnprior, use_pallas=True,
-        dv_max=1.5, pallas_kernel="gather", interpret=True)
-
-    def sampler():
-        run_fn = make_fused_ensemble_gather(
-            model, spec, grid.ints, grid.yerrs, bounds, means, stds,
-            dv_max=1.5, nwalkers=16, interpret=True)
-        return FusedEnsembleSampler(
-            lnprob_fn=lnprob_b, nwalkers=16, ndim=spec.ndim, batched=True,
-            dtype=jnp.float32, run_fn=run_fn)
-
-    rng = np.random.default_rng(0)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((16, 4)))
-    key = jax.random.PRNGKey(11)
-
-    full = sampler()
-    full.run_mcmc(pos0, 16, key, checkpoint_every=8,
-                  chain_file=str(tmp_path / "full.npy"))
-
-    part = sampler()
-    part.run_mcmc(pos0, 8, key, checkpoint_every=8,
-                  chain_file=str(tmp_path / "split.npy"))
-    resumed = sampler()
-    prev = np.load(tmp_path / "split.npy")
-    pos = resumed.preload(prev)
-    state = resumed.load_state(str(tmp_path / "split.npy"))
-    assert state is not None
-    pos, lnp0, key2 = state
-    resumed.run_mcmc(pos, 8, key2, lnp0=lnp0, checkpoint_every=8,
-                     chain_file=str(tmp_path / "split.npy"))
-    np.testing.assert_array_equal(resumed.chain, full.chain)
-    assert resumed.accepted == full.accepted
-
-
-@requires_reference
-def test_fused_gather_kernel_free_source_size(hc5n_problem, hc5n_datagrid):
-    """5-dim free-ss layout through the dense gather kernel (the
-    MCMC_variable_source_size family): bitwise trajectories vs the
-    general sampler over the batched gather lnprob."""
-    from cha1_mcmc_tpu.inference import ParamSpec, single_component_lnprior
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused_gather import make_fused_ensemble_gather
-
-    model = hc5n_problem["model"]
-    grid = hc5n_datagrid
-    spec5 = ParamSpec(ncomp=1, fixed_source_size=None)
-    bounds5 = {"source_size": (30.0, 90.0), "Ncol": (1e8, 1e14),
-               "Tex": (3.5, 12.0), "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means5 = np.array([46.91, 3.4e10, 8.0, 4.3, 0.7575])
-    stds5 = np.array([6.5, 0.34e10, 3.0, 0.06, 0.22])
-    lnprior5 = single_component_lnprior(spec5, bounds5, means5, stds5)
-    lnprob5 = build_lnprob_batched(
-        model, spec5, grid.ints, grid.yerrs, lnprior5, use_pallas=True,
-        dv_max=1.5, pallas_kernel="gather", interpret=True)
-    run_fused = make_fused_ensemble_gather(
-        model, spec5, grid.ints, grid.yerrs, bounds5, means5, stds5,
-        dv_max=1.5, nwalkers=16, interpret=True)
-    rng = np.random.default_rng(3)
-    pos5 = jnp.asarray(np.array([52.0, 3.24e12, 7.5, 4.11, 0.78]) *
-                       (1 + 0.01 * rng.standard_normal((16, 5))),
-                       jnp.float32)
-    lnp5 = lnprob5(pos5)
-    key = jax.random.PRNGKey(1)
-    cf, lf, *_ = run_fused(pos5, lnp5, key, 12, 4)
-    cu, lu, *_ = run_ensemble(lnprob5, pos5, lnp5, key, nsteps=12,
-                              batched=True)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lu), rtol=1e-5)
-
-
-def test_fused_sampler_thin_matches_general(hc5n_problem, hc5n_datagrid):
-    """thin > 1 on the fused path (VERDICT r3 weak #6): the fused sampler
-    advances nsteps * thin raw moves and records every thin-th state —
-    the same chain the general sampler records at the same thin."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior, build_lnprob
-    from cha1_mcmc_tpu.sampler import EnsembleSampler
-    from cha1_mcmc_tpu.sampler.fused import (FusedEnsembleSampler,
-                                             make_fused_ensemble)
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, lnprior)
-    run_fn = make_fused_ensemble(model, spec, grid.ints, grid.yerrs,
-                                 bounds, means, stds, interpret=True)
-
-    rng = np.random.default_rng(0)
-    pos0 = jnp.asarray(np.array([3.24e12, 7.5, 4.11, 0.78]) *
-                       (1 + 0.01 * rng.standard_normal((16, 4))), jnp.float32)
-    key = jax.random.PRNGKey(0)  # no marginal acceptance flips (see above)
-
-    fused = FusedEnsembleSampler(lnprob_fn=lnprob, nwalkers=16, ndim=4,
-                                 run_fn=run_fn)
-    fused.run_mcmc(pos0, 8, key, checkpoint_every=64, thin=2)
-    general = EnsembleSampler(lnprob_fn=lnprob, nwalkers=16, ndim=4)
-    general.run_mcmc(pos0, 8, key, checkpoint_every=64, thin=2)
-    np.testing.assert_array_equal(fused.chain, general.chain)
-    assert fused.total_proposals == general.total_proposals
-    assert fused.accepted == general.accepted
-
-
-def test_multichain_fused_matches_general(hc5n_problem, hc5n_datagrid,
-                                          tmp_path):
-    """MultiChainSampler with a fused run_fn (vmapped over the chain
-    axis) records the same pooled chain as the general multi-chain
-    sampler — K independent chains keep the fused kernel's step rate."""
-    from cha1_mcmc_tpu.inference import single_component_lnprior, build_lnprob
-    from cha1_mcmc_tpu.sampler import MultiChainSampler
-    from cha1_mcmc_tpu.sampler.fused import make_fused_ensemble
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    lnprior = single_component_lnprior(spec, bounds, means, stds)
-    lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, lnprior)
-    run_fn = make_fused_ensemble(model, spec, grid.ints, grid.yerrs,
-                                 bounds, means, stds, interpret=True)
-
-    rng = np.random.default_rng(0)
-    W = 32  # pooled across 2 chains of 16
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((W, 4)))
-    key = jax.random.PRNGKey(0)
-    fused = MultiChainSampler(lnprob_fn=lnprob, nwalkers=W, ndim=4,
-                              n_chains=2, run_fn=run_fn)
-    fused.run_mcmc(pos0, 8, key, checkpoint_every=8)
-    general = MultiChainSampler(lnprob_fn=lnprob, nwalkers=W, ndim=4,
-                                n_chains=2)
-    general.run_mcmc(pos0, 8, key, checkpoint_every=8)
-    np.testing.assert_array_equal(fused.chain, general.chain)
-    assert fused.accepted == general.accepted
-
-
-@requires_reference
-@pytest.mark.slow
-@pytest.mark.parametrize("device_q", ["cheb", "states"])
-def test_fused_gather_blocked_dense_grid(device_q):
-    """The blocked fused kernel on the REAL dense_full_fit geometry
-    (tests/golden/dense_synth.npz: 2,095-line 1-cyanonaphthalene x 10,850
-    channels, 1,554 heavy channels): the plan must engage multi-block
-    channel walks over real (not padding) channels, and a short fused
-    chain must reproduce run_ensemble over the batched gather lnprob —
-    the pre-TPU correctness gate for the dense full fit, which the
-    pre-blocking kernel could never serve (its overflow scatter exceeded
-    scoped VMEM; BASELINE.md round-4 addendum). Parametrized over both
-    device-Q representations: "cheb" is what the pipeline now attaches
-    (partition.py:fit_device_cheb — build_model's default for
-    states-kind catalogs), "states" strips the surrogate so the
-    16k-state in-kernel Boltzmann band walk keeps bitwise coverage (the
-    path direct kernel users without a Tex box still take)."""
-    import dataclasses
-    import os
-
-    from cha1_mcmc_tpu.inference import single_component_lnprior
-    from cha1_mcmc_tpu.pipeline.fit import SpectralFit
-    from cha1_mcmc_tpu.reduce.datagrid import Datagrid
-    from cha1_mcmc_tpu.sampler import run_ensemble
-    from cha1_mcmc_tpu.sampler.fused_gather import (
-        make_fused_ensemble_gather, plan_fused_gather)
-    from tools.dense_full_fit import GOLDEN_PATH, _golden_config
-
-    if not os.path.exists(GOLDEN_PATH):
-        pytest.skip("dense_synth golden not committed")
-    cfg, g = _golden_config(8, 8)
-    grid = Datagrid(freqs=np.asarray(g["freqs"], dtype=np.float64),
-                    ints=np.asarray(g["ints"], dtype=np.float64),
-                    yerrs=np.asarray(g["yerrs"], dtype=np.float64),
-                    covered_trans=np.asarray(g["covered_trans"], dtype=int))
-    fit = SpectralFit(cfg)
-    model = fit.build_model(grid)
-    if device_q == "cheb":
-        assert model.q_model.cheb_coeffs is not None  # pipeline attached
-    else:  # strip the surrogate: exact in-kernel state-sum band walk
-        model = dataclasses.replace(
-            model, q_model=dataclasses.replace(
-                model.q_model, cheb_interval=None, cheb_coeffs=None))
-    spec = fit.spec
-    means = np.asarray(cfg.template_means, dtype=np.float64)
-    stds = np.asarray(cfg.template_stds, dtype=np.float64)
-    dv_max = cfg.bounds["dV"][1]
-
-    plan = plan_fused_gather(model, spec, dv_max, nwalkers=8)
-    assert plan is not None, "blocked planner must now serve this geometry"
-    assert plan["n_bo"] > 1 or plan["n_br"] > 1   # real fori block walks
-
-    lnprior = single_component_lnprior(spec, cfg.bounds, means, stds)
-    lnprob_b = build_lnprob_batched(
-        model, spec, grid.ints, grid.yerrs, lnprior, use_pallas=True,
-        dv_max=dv_max, pallas_kernel="gather", interpret=True)
-    run_fused = make_fused_ensemble_gather(
-        model, spec, grid.ints, grid.yerrs, cfg.bounds, means, stds,
-        dv_max=dv_max, nwalkers=8, plan=plan, interpret=True)
-
-    rng = np.random.default_rng(3)
-    pos0 = np.array([float(g["ncol_true"]), 8.0, 5.8, 0.7575]) * (
-        1 + 0.01 * rng.standard_normal((8, 4)))
-    pos0 = jnp.asarray(pos0, jnp.float32)
-    lnp0 = lnprob_b(pos0)
-    key = jax.random.PRNGKey(5)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, lnp0, key, 8, 2)
-    cu, lu, au, (pu, lpu) = run_ensemble(lnprob_b, pos0, lnp0, key,
-                                         nsteps=8, batched=True)
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cu))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lu), rtol=2e-5)
-    np.testing.assert_array_equal(np.asarray(af),
-                                  np.asarray(au).astype(np.float32))
-
-
-@requires_reference
-@pytest.mark.slow
-def test_vmem_probe_subprocess_end_to_end(hc5n_problem, hc5n_datagrid,
-                                          tmp_path, monkeypatch):
-    """The deviceless scoped-VMEM prober (fused_gather._make_prober ->
-    sampler/vmem_probe.py subprocess) end to end on a small real model:
-    the payload pickles, the subprocess compiles the real program against
-    the compile-only v5e topology, the verdict comes back True, and it is
-    cached so the second consultation never spawns a process. This guards
-    the plumbing the probe-backed planner depends on — a silent pickling
-    or env regression would quietly downgrade every dense fit to the
-    analytic-only (slower) plans."""
-    from cha1_mcmc_tpu.sampler.fused_gather import (
-        _make_prober, plan_fused_gather)
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    monkeypatch.setenv("CHA1_CACHE_DIR", str(tmp_path))
-    plan = plan_fused_gather(model, spec, 1.5, nwalkers=16, probe=False)
-    if plan is None:
-        pytest.skip("hc5n tables not worthwhile at this geometry")
-    from cha1_mcmc_tpu.catalogs.partition import device_n_states
-
-    prober = _make_prober(model, spec, 16)
-    args = (plan["tables"], int(model.n_channels),
-            device_n_states(model.q_model), plan["wchunk"], plan["cblock"],
-            plan["unroll_bo"], plan["unroll_br"])
-    ok, cached = prober(*args)
-    assert ok is True and cached is False
-    assert (tmp_path / "vmem_verdicts.json").exists()
-    ok2, cached2 = prober(*args)
-    assert ok2 is True and cached2 is True

@@ -8,14 +8,12 @@ import jax.numpy as jnp
 from cha1_mcmc_tpu.models.forward import SpectralModel
 from cha1_mcmc_tpu.inference import ParamSpec, single_component_lnprior
 from cha1_mcmc_tpu.parallel import make_mesh, pad_model_lines, run_ensemble_sharded
-from tests.conftest import requires_reference
 
 
 def test_eight_virtual_devices():
     assert len(jax.devices()) == 8
 
 
-@requires_reference
 def test_pad_model_lines_preserves_forward(hc5n_problem):
     model = hc5n_problem["model"]
     padded = pad_model_lines(model, 4)
@@ -26,7 +24,6 @@ def test_pad_model_lines_preserves_forward(hc5n_problem):
         rtol=1e-6)
 
 
-@requires_reference
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2), (2, 4)])
 def test_sharded_ensemble_runs_and_samples(hc5n_problem, hc5n_datagrid, mesh_shape):
     model, spec = hc5n_problem["model"], hc5n_problem["spec"]
@@ -49,7 +46,6 @@ def test_sharded_ensemble_runs_and_samples(hc5n_problem, hc5n_datagrid, mesh_sha
     assert chain[..., 1].min() > 3.5 and chain[..., 1].max() < 12.0
 
 
-@requires_reference
 def test_sharded_split_randomizes(hc5n_problem, hc5n_datagrid):
     """The per-device half-split must vary step to step (emcee
     randomize_split analogue): with a fixed split, a walker in the first
@@ -77,7 +73,6 @@ def test_sharded_split_randomizes(hc5n_problem, hc5n_datagrid):
     assert rates.std() < 0.35 and (rates > 0.05).all()
 
 
-@requires_reference
 def test_sharded_matches_single_device_posterior(hc5n_problem, hc5n_datagrid):
     """Distributional parity: the sharded ensemble (randomized per-device
     split, globally gathered complement) and the single-device sampler
@@ -115,16 +110,12 @@ def test_sharded_matches_single_device_posterior(hc5n_problem, hc5n_datagrid):
         assert ks.pvalue > 1e-4, (d, ks)
 
 
-@requires_reference
 def test_line_sharding_matches_unsharded_lnprob(hc5n_problem, hc5n_datagrid):
     """psum over line shards must reproduce the single-device lnprob."""
     from functools import partial
     from jax.sharding import PartitionSpec as P
 
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     from cha1_mcmc_tpu.models.forward import forward_from_lines
     from cha1_mcmc_tpu.parallel.sharded import LINE_AXIS, WALKER_AXIS
@@ -154,11 +145,10 @@ def test_line_sharding_matches_unsharded_lnprob(hc5n_problem, hc5n_datagrid):
     np.testing.assert_allclose(sharded, unsharded, rtol=2e-5, atol=1e-8)
 
 
-@requires_reference
 def test_sharded_ensemble_with_pallas(hc5n_problem, hc5n_datagrid):
-    """dp x tp x Pallas composition: line-sharded walkers with the Pallas
-    opacity kernel (interpret mode on CPU) sample the same posterior
-    region as the jnp sharded path."""
+    """dp x tp x sparse-gather composition: line-sharded walkers with the
+    per-shard channel-major gather opacity follow the same trajectory as
+    the einsum sharded path (identical randomness, near-exact opacity)."""
     model, spec = hc5n_problem["model"], hc5n_problem["spec"]
     lnprior = hc5n_problem["lnprior"]
     grid = hc5n_datagrid
@@ -169,21 +159,47 @@ def test_sharded_ensemble_with_pallas(hc5n_problem, hc5n_datagrid):
     chain, lnps, acc, _ = run_ensemble_sharded(
         model, spec, grid.ints, grid.yerrs, lnprior, pos0,
         jax.random.PRNGKey(1), nsteps=15, mesh=mesh,
-        use_pallas=True, dv_max=1.5, interpret=True)
+        use_pallas=True, dv_max=1.5)
     assert np.asarray(chain).shape == (15, W, 4)
     assert np.isfinite(np.asarray(lnps)).all()
-    # same seed, jnp path: identical randomness => identical chain up to
-    # numerical differences in the opacity kernel (which is near-exact)
     chain2, lnps2, *_ = run_ensemble_sharded(
         model, spec, grid.ints, grid.yerrs, lnprior, pos0,
         jax.random.PRNGKey(1), nsteps=15, mesh=mesh)
     np.testing.assert_allclose(np.asarray(lnps), np.asarray(lnps2), rtol=1e-3, atol=1e-2)
+    with pytest.raises(ValueError):
+        run_ensemble_sharded(model, spec, grid.ints, grid.yerrs, lnprior,
+                             pos0, jax.random.PRNGKey(1), nsteps=1,
+                             mesh=mesh, use_pallas=True)
 
 
-@requires_reference
+@pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4), (4, 2), (8, 1)])
+def test_sharded_dense_gather_matches_single_device(mesh_shape):
+    """A dense catalog (the sparse gather's regime) with its lines split
+    over the mesh — per-shard gather tables padded to a common size, one
+    psum of the partial opacity — gives the single-device gather lnprob."""
+    from cha1_mcmc_tpu.catalogs.synthetic import DENSE_TRUTH, dense_problem
+    from cha1_mcmc_tpu.inference import build_lnprob_batched
+    from cha1_mcmc_tpu.parallel import make_sharded_lnprob
+
+    p = dense_problem(n_lines=2100, n_channels=2048, seed=3)
+    args = (p["model"], p["spec"], p["ints"], p["yerrs"], p["lnprior"])
+    truth = np.array([DENSE_TRUTH[k] for k in ("Ncol", "Tex", "vlsr", "dV")])
+    rng = np.random.default_rng(0)
+    thetas = (truth * (1 + 0.01 * rng.standard_normal((16, 4)))).astype(np.float32)
+    thetas[5, 3] = 2.0  # dV outside the prior box: -inf on both paths
+    single = np.asarray(build_lnprob_batched(*args, use_pallas=True,
+                                             dv_max=1.5)(thetas))
+    sharded = np.asarray(make_sharded_lnprob(
+        *args, make_mesh(*mesh_shape), use_pallas=True, dv_max=1.5)(thetas))
+    assert single[5] == sharded[5] == -np.inf
+    keep = np.isfinite(single)
+    assert keep.sum() == 15
+    np.testing.assert_allclose(sharded[keep], single[keep], rtol=1e-6)
+
+
 def test_sharded_multichain_composition(hc5n_problem, hc5n_datagrid):
     """2 independent chains x a 4-device (2 walker-shards x 2 line-shards)
-    mesh on the 8 virtual devices (VERDICT r2 item 8): the 'chains' mesh
+    mesh on the 8 virtual devices: the 'chains' mesh
     axis carries K independent ensembles, the pooled chain keeps whole
     chains contiguous, and cross-chain R-hat diagnostics run on it."""
     from cha1_mcmc_tpu.parallel import make_sharded_sampler
@@ -219,7 +235,6 @@ def test_sharded_multichain_composition(hc5n_problem, hc5n_datagrid):
     assert 0.1 < sampler.acceptance_fraction < 0.95
 
 
-@requires_reference
 def test_sharded_mesh_chain_axis_degenerate(hc5n_problem, hc5n_datagrid):
     """n_chains=1 keeps the historical ('walkers', 'lines') behavior:
     same chain as a mesh without the chains axis."""
@@ -241,9 +256,8 @@ def test_sharded_mesh_chain_axis_degenerate(hc5n_problem, hc5n_datagrid):
     np.testing.assert_array_equal(np.asarray(ca), np.asarray(cb))
 
 
-@requires_reference
 def test_sharded_sampler_thin_subsamples_raw(hc5n_problem, hc5n_datagrid):
-    """thin > 1 on the sharded path (VERDICT r3 weak #6): advances
+    """thin > 1 on the sharded path: advances
     nsteps * thin raw moves in one mesh program and records every thin-th
     state — bitwise the thin=1 trajectory subsampled."""
     from cha1_mcmc_tpu.parallel import make_sharded_sampler
@@ -268,336 +282,3 @@ def test_sharded_sampler_thin_subsamples_raw(hc5n_problem, hc5n_datagrid):
     np.testing.assert_array_equal(s_thin.chain, s_raw.chain[:, 1::2, :])
     assert s_thin.total_proposals == s_raw.total_proposals
     assert s_thin.accepted == s_raw.accepted
-
-
-@requires_reference
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (4, 1)])
-def test_fused_sharded_bitwise_matches_general(hc5n_problem, hc5n_datagrid,
-                                               mesh_shape):
-    """The fused sharded runner (parallel/sharded_fused.py, VERDICT r3
-    weak #5) reproduces the general sharded mesh program on the same PRNG
-    stream: walker trajectories bitwise-identical (one-hot HIGHEST
-    matmuls are exact; entry lnp shares the general formulation), lnp to
-    an f32 ulp, same acceptance totals."""
-    from cha1_mcmc_tpu.parallel import (make_fused_sharded_runner,
-                                        make_sharded_runner)
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    lnprior = hc5n_problem["lnprior"]
-    grid = hc5n_datagrid
-    mesh = make_mesh(*mesh_shape)
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    W, steps = 32, 24
-    rng = np.random.default_rng(0)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((W, 4)))
-    key = jax.random.PRNGKey(0)
-
-    run_gen = make_sharded_runner(model, spec, grid.ints, grid.yerrs,
-                                  lnprior, mesh, steps)
-    cg, lg, ag, (pg, lpg) = run_gen(pos0, key)
-    run_fused = make_fused_sharded_runner(
-        model, spec, grid.ints, grid.yerrs, lnprior, bounds, means, stds,
-        mesh, steps, interpret=True)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, key)
-
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cg))
-    np.testing.assert_array_equal(np.asarray(pf), np.asarray(pg))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lg), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(af, np.float32),
-                                  np.asarray(ag, np.float32))
-
-
-@requires_reference
-def test_fused_sharded_sampler_contract(hc5n_problem, hc5n_datagrid,
-                                        tmp_path):
-    """make_sharded_sampler(use_fused=True) keeps the full
-    EnsembleSampler contract — chain layout, checkpoint file, .state.npz
-    exact resume — through the fused mesh program, and composes with the
-    chains axis."""
-    from cha1_mcmc_tpu.parallel import make_sharded_sampler
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    lnprior = hc5n_problem["lnprior"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    W, steps = 32, 24
-    kwargs = dict(n_devices=4, n_line_shards=1, n_chains=2, nwalkers=W,
-                  ndim=4, a=2.0, dtype=jnp.float32, model=model, spec=spec,
-                  grid_ints=grid.ints, grid_yerrs=grid.yerrs,
-                  lnprior_fn=lnprior, use_fused=True, bounds=bounds,
-                  prior_means=means, prior_stds=stds, verbose=False,
-                  interpret=True)
-    sampler = make_sharded_sampler(**kwargs)
-    assert sampler.use_fused  # eligibility actually selected the kernel
-    rng = np.random.default_rng(0)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((W, 4)))
-    chain_file = str(tmp_path / "chain.npy")
-    key = jax.random.PRNGKey(7)
-    sampler.run_mcmc(pos0, steps, key, checkpoint_every=8,
-                     chain_file=chain_file)
-    assert sampler.chain.shape == (W, steps, 4)
-    assert 0.05 < sampler.acceptance_fraction < 0.95
-
-    # Exact resume from the .state.npz sidecar vs an uninterrupted run.
-    full = make_sharded_sampler(**kwargs)
-    full.run_mcmc(pos0, 2 * steps, key, checkpoint_every=8)
-    resumed = make_sharded_sampler(**kwargs)
-    state = resumed.load_state(chain_file)
-    assert state is not None
-    pos, lnp, saved_key = state
-    resumed.preload(np.load(chain_file))
-    resumed.run_mcmc(pos, steps, saved_key, checkpoint_every=8, lnp0=lnp)
-    np.testing.assert_array_equal(resumed.chain, full.chain)
-
-
-@requires_reference
-def test_fused_sharded_falls_back_when_ineligible(hc5n_problem,
-                                                  hc5n_datagrid):
-    """Line-sharded meshes keep the general path: use_fused degrades
-    gracefully instead of failing in make_fused_sharded_runner."""
-    from cha1_mcmc_tpu.parallel import make_sharded_sampler
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    sampler = make_sharded_sampler(
-        n_devices=4, n_line_shards=2, nwalkers=16, ndim=4, a=2.0,
-        dtype=jnp.float32, model=model, spec=spec, grid_ints=grid.ints,
-        grid_yerrs=grid.yerrs, lnprior_fn=hc5n_problem["lnprior"],
-        use_fused=True, bounds=bounds,
-        prior_means=np.array([3.4e10, 8.0, 4.3, 0.7575]),
-        prior_stds=np.array([0.34e10, 3.0, 0.06, 0.22]), verbose=False)
-    assert not sampler.use_fused
-
-
-@requires_reference
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (4, 1)])
-def test_fused_gather_sharded_matches_general(hc5n_problem, hc5n_datagrid,
-                                              mesh_shape):
-    """The DENSE fused-sharded composition (channel-major gather step
-    kernel per device, parallel/sharded_fused.py:
-    make_fused_gather_sharded_runner) reproduces the general sharded mesh
-    program on the same PRNG stream. The in-kernel lnprob is the gather
-    -table formulation rather than the general path's forward_from_lines,
-    so lnp agrees to f32 ulps and trajectories are bitwise-equal on the
-    tested streams (the same caveat sampler/fused.py documents)."""
-    from cha1_mcmc_tpu.parallel import (make_fused_gather_sharded_runner,
-                                        make_sharded_runner)
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    lnprior = hc5n_problem["lnprior"]
-    grid = hc5n_datagrid
-    mesh = make_mesh(*mesh_shape)
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    W, steps = 32, 24
-    rng = np.random.default_rng(0)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((W, 4)))
-    key = jax.random.PRNGKey(0)
-
-    run_gen = make_sharded_runner(model, spec, grid.ints, grid.yerrs,
-                                  lnprior, mesh, steps)
-    cg, lg, ag, (pg, lpg) = run_gen(pos0, key)
-    run_fused = make_fused_gather_sharded_runner(
-        model, spec, grid.ints, grid.yerrs, bounds, means, stds,
-        mesh, steps, nwalkers=W, dv_max=bounds["dV"][1], interpret=True)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, key)
-
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cg))
-    np.testing.assert_array_equal(np.asarray(pf), np.asarray(pg))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lg), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(af, np.float32),
-                                  np.asarray(ag, np.float32))
-
-
-@requires_reference
-def test_fused_gather_sharded_sampler_contract(hc5n_problem, hc5n_datagrid,
-                                               tmp_path):
-    """make_sharded_sampler(use_fused=True, use_pallas=True) routes dense
-    configs to the gather step kernel (use_fused_gather) and keeps the
-    full sampler contract: chain layout, checkpoint file, .state.npz
-    exact resume."""
-    from cha1_mcmc_tpu.parallel import make_sharded_sampler
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    lnprior = hc5n_problem["lnprior"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    means = np.array([3.4e10, 8.0, 4.3, 0.7575])
-    stds = np.array([0.34e10, 3.0, 0.06, 0.22])
-    W, steps = 32, 16
-    kwargs = dict(n_devices=2, n_line_shards=1, nwalkers=W, ndim=4, a=2.0,
-                  dtype=jnp.float32, model=model, spec=spec,
-                  grid_ints=grid.ints, grid_yerrs=grid.yerrs,
-                  lnprior_fn=lnprior, use_pallas=True, dv_max=1.5,
-                  use_fused=True, bounds=bounds, prior_means=means,
-                  prior_stds=stds, verbose=False, interpret=True)
-    sampler = make_sharded_sampler(**kwargs)
-    assert sampler.use_fused_gather  # dense routing picked the gather kernel
-    assert not sampler.use_fused
-    rng = np.random.default_rng(0)
-    pos0 = np.array([3.24e12, 7.5, 4.11, 0.78]) * (
-        1 + 0.01 * rng.standard_normal((W, 4)))
-    chain_file = str(tmp_path / "chain.npy")
-    key = jax.random.PRNGKey(7)
-    sampler.run_mcmc(pos0, steps, key, checkpoint_every=8,
-                     chain_file=chain_file)
-    assert sampler.chain.shape == (W, steps, 4)
-    assert 0.05 < sampler.acceptance_fraction < 0.95
-
-    # Exact resume from the .state.npz sidecar vs an uninterrupted run.
-    full = make_sharded_sampler(**kwargs)
-    full.run_mcmc(pos0, 2 * steps, key, checkpoint_every=8)
-    resumed = make_sharded_sampler(**kwargs)
-    state = resumed.load_state(chain_file)
-    assert state is not None
-    pos, lnp, saved_key = state
-    resumed.preload(np.load(chain_file))
-    resumed.run_mcmc(pos, steps, saved_key, checkpoint_every=8, lnp0=lnp)
-    np.testing.assert_array_equal(resumed.chain, full.chain)
-
-
-@requires_reference
-def test_fused_gather_sharded_falls_back_when_ineligible(hc5n_problem,
-                                                         hc5n_datagrid):
-    """Line-sharded dense meshes keep the general path: use_fused with
-    use_pallas degrades gracefully instead of failing in
-    make_fused_gather_sharded_runner."""
-    from cha1_mcmc_tpu.parallel import make_sharded_sampler
-
-    model, spec = hc5n_problem["model"], hc5n_problem["spec"]
-    grid = hc5n_datagrid
-    bounds = {"Ncol": (1e8, 1e14), "Tex": (3.5, 12.0),
-              "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
-    sampler = make_sharded_sampler(
-        n_devices=4, n_line_shards=2, nwalkers=16, ndim=4, a=2.0,
-        dtype=jnp.float32, model=model, spec=spec, grid_ints=grid.ints,
-        grid_yerrs=grid.yerrs, lnprior_fn=hc5n_problem["lnprior"],
-        use_pallas=True, dv_max=1.5, use_fused=True, bounds=bounds,
-        prior_means=np.array([3.4e10, 8.0, 4.3, 0.7575]),
-        prior_stds=np.array([0.34e10, 3.0, 0.06, 0.22]), verbose=False)
-    assert not sampler.use_fused_gather and not sampler.use_fused
-
-
-@requires_reference
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (4, 1)])
-def test_fused_multi_sharded_matches_general(hc9n_problem, mesh_shape):
-    """The MULTI-COMPONENT fused-sharded composition (transposed-layout
-    half-step kernel per device, parallel/sharded_fused.py:
-    make_fused_multi_sharded_runner) reproduces the general sharded mesh
-    program on the same PRNG stream for the 14-dim 4-component GOTHAM fit
-    (reference TMC1_four_component.py). The in-kernel lnprob is the
-    compact-span formulation rather than forward_from_lines, so lnp
-    agrees to f32 ulps and trajectories are bitwise-equal on the tested
-    streams (the caveat sampler/fused_multi.py documents)."""
-    from cha1_mcmc_tpu.inference import ordered_velocity_lnprior
-    from cha1_mcmc_tpu.parallel import (make_fused_multi_sharded_runner,
-                                        make_sharded_runner)
-
-    model, spec, grid = (hc9n_problem["model"], hc9n_problem["spec"],
-                         hc9n_problem["grid"])
-    means, stds = hc9n_problem["means"], hc9n_problem["stds"]
-    dv_bound = hc9n_problem["dv_bound"]
-    lnprior = ordered_velocity_lnprior(spec, means, stds, dv_max=dv_bound)
-    mesh = make_mesh(*mesh_shape)
-    W, steps = 32, 16
-    rng = np.random.default_rng(5)
-    pos0 = means + hc9n_problem["perturbation"] * rng.standard_normal(
-        (W, spec.ndim))
-    key = jax.random.PRNGKey(3)
-
-    run_gen = make_sharded_runner(model, spec, grid.ints, grid.yerrs,
-                                  lnprior, mesh, steps)
-    cg, lg, ag, (pg, lpg) = run_gen(pos0, key)
-    run_fused = make_fused_multi_sharded_runner(
-        model, spec, grid.ints, grid.yerrs, lnprior, means, stds,
-        mesh, steps, nwalkers=W, dv_max=dv_bound, interpret=True)
-    cf, lf, af, (pf, lpf) = run_fused(pos0, key)
-
-    np.testing.assert_array_equal(np.asarray(cf), np.asarray(cg))
-    np.testing.assert_array_equal(np.asarray(pf), np.asarray(pg))
-    np.testing.assert_allclose(np.asarray(lf), np.asarray(lg), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(af, np.float32),
-                                  np.asarray(ag, np.float32))
-
-
-@requires_reference
-def test_fused_multi_sharded_sampler_contract(hc9n_problem, tmp_path):
-    """make_sharded_sampler(use_fused=True) routes multi-component
-    configs to the transposed-layout half-step kernel (use_fused_multi)
-    and keeps the full sampler contract: chain layout, checkpoint file,
-    .state.npz exact resume."""
-    from cha1_mcmc_tpu.inference import ordered_velocity_lnprior
-    from cha1_mcmc_tpu.parallel import make_sharded_sampler
-
-    model, spec, grid = (hc9n_problem["model"], hc9n_problem["spec"],
-                         hc9n_problem["grid"])
-    means, stds = hc9n_problem["means"], hc9n_problem["stds"]
-    dv_bound = hc9n_problem["dv_bound"]
-    lnprior = ordered_velocity_lnprior(spec, means, stds, dv_max=dv_bound)
-    W, steps = 32, 16
-    kwargs = dict(n_devices=2, n_line_shards=1, nwalkers=W, ndim=spec.ndim,
-                  a=2.0, dtype=jnp.float32, model=model, spec=spec,
-                  grid_ints=grid.ints, grid_yerrs=grid.yerrs,
-                  lnprior_fn=lnprior, dv_max=dv_bound, use_fused=True,
-                  prior_means=means, prior_stds=stds, verbose=False,
-                  interpret=True)
-    sampler = make_sharded_sampler(**kwargs)
-    assert sampler.use_fused_multi  # multi routing picked the fused kernel
-    assert not sampler.use_fused and not sampler.use_fused_gather
-    rng = np.random.default_rng(0)
-    pos0 = means + hc9n_problem["perturbation"] * rng.standard_normal(
-        (W, spec.ndim))
-    chain_file = str(tmp_path / "chain.npy")
-    key = jax.random.PRNGKey(7)
-    sampler.run_mcmc(pos0, steps, key, checkpoint_every=8,
-                     chain_file=chain_file)
-    assert sampler.chain.shape == (W, steps, spec.ndim)
-    assert 0.05 < sampler.acceptance_fraction < 0.95
-
-    # Exact resume from the .state.npz sidecar vs an uninterrupted run.
-    full = make_sharded_sampler(**kwargs)
-    full.run_mcmc(pos0, 2 * steps, key, checkpoint_every=8)
-    resumed = make_sharded_sampler(**kwargs)
-    state = resumed.load_state(chain_file)
-    assert state is not None
-    pos, lnp, saved_key = state
-    resumed.preload(np.load(chain_file))
-    resumed.run_mcmc(pos, steps, saved_key, checkpoint_every=8, lnp0=lnp)
-    np.testing.assert_array_equal(resumed.chain, full.chain)
-
-
-@requires_reference
-def test_fused_multi_sharded_falls_back_when_ineligible(hc9n_problem):
-    """Line-sharded multi-component meshes keep the general path:
-    use_fused degrades gracefully instead of failing in
-    make_fused_multi_sharded_runner."""
-    from cha1_mcmc_tpu.inference import ordered_velocity_lnprior
-    from cha1_mcmc_tpu.parallel import make_sharded_sampler
-
-    model, spec, grid = (hc9n_problem["model"], hc9n_problem["spec"],
-                         hc9n_problem["grid"])
-    means, stds = hc9n_problem["means"], hc9n_problem["stds"]
-    lnprior = ordered_velocity_lnprior(spec, means, stds,
-                                       dv_max=hc9n_problem["dv_bound"])
-    sampler = make_sharded_sampler(
-        n_devices=4, n_line_shards=2, nwalkers=16, ndim=spec.ndim, a=2.0,
-        dtype=jnp.float32, model=model, spec=spec, grid_ints=grid.ints,
-        grid_yerrs=grid.yerrs, lnprior_fn=lnprior,
-        dv_max=hc9n_problem["dv_bound"], use_fused=True, prior_means=means,
-        prior_stds=stds, verbose=False)
-    assert not sampler.use_fused_multi
-    assert not sampler.use_fused and not sampler.use_fused_gather

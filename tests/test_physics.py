@@ -44,7 +44,6 @@ def test_stick_sim_matches_reference_molsim(hc5n_catalog):
         np.testing.assert_allclose(np.array(sim.tau_sim), t2, rtol=1e-12)
 
 
-@requires_reference
 def test_multicomponent_stick_sum(hc5n_catalog):
     """Components sum after radiative transfer (reference classes.py:394-395)."""
     f, i_two, t_two = simulate_sticks_host(
@@ -92,7 +91,6 @@ def test_gauss_sim_matches_reference_molsim(hc5n_catalog):
         np.testing.assert_allclose(np.array(sim.tau_sim), t2, rtol=1e-12)
 
 
-@requires_reference
 def test_device_tau_matches_host_f64(hc5n_catalog):
     """jnp float32 opacities agree with the float64 host oracle."""
     qm = q_model_for_catalog(hc5n_catalog)

@@ -45,7 +45,6 @@ def test_datagrid_golden_parity(hc5n_datagrid):
     np.testing.assert_array_equal(ref_grid[3], hc5n_datagrid.covered_trans)
 
 
-@requires_reference
 def test_datagrid_roundtrip(tmp_path, hc5n_datagrid):
     path = str(tmp_path / "grid.npy")
     save_datagrid(path, hc5n_datagrid)
